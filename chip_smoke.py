@@ -1,25 +1,40 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path, the confidence-gated deployment driver, at
-the size the JAX package's benchmark uses for it (65,536 lockstep envs,
-50 ticks, a 2^18-row store), through the CUDA kernel hand-written for
-Hopper, and checks it:
+Drives the port's two main paths through the CUDA kernels hand-written
+for Hopper, at the sizes the JAX package's benchmark (``bench.py``) uses
+for them, and checks them:
 
-  device      torch / CUDA versions, the card's name and power limit
-  build       nvcc builds every kernel of the path from csrc/
-  store fill  the rule driver at 16,384 envs x 16 ticks; its world-frame
-              observations, keyed with seeded actions and valued from the
-              tick's reward, make the 2^18-row store
-  kernel      kernel against its plain PyTorch version on three stores:
-              random with off-lattice rows, 50x duplicated, and the
-              main-path store against 4,096 of the main path's queries.
-              Counts exact, sums within rtol 1e-4 / atol 1e-3
-  main path   gated driver, kernel route; launches must equal the ticks
-              and the gate must fire; then a replay of the same run with
-              CUDA events around each launch times the kernel
-  e2e check   256 envs x 10 ticks through the kernel route and the brute
-              reference route: integer outputs equal
+  device        torch / CUDA versions, the card's name and power limit
+  build         nvcc builds every kernel from csrc/, one process per source
+  kernels       each kernel against its plain PyTorch version on small
+                stores: peraction_moments (random with off-lattice rows,
+                50x duplicated), sorted_moments (flat on a random store,
+                grouped on a random 11-action store and on a dense-block
+                store with valid sentinel rows, D = 5), box_moments
+                (random).  Counts exact, sums within rtol 1e-4 / atol 1e-3
+  store fill    the rule driver at 16,384 envs x 16 ticks makes a
+                2^18-row store from its observations
+  gated path    gated driver, 65,536 envs x 50 ticks, against that store:
+                one peraction_moments launch per tick, the gate fires; a
+                replay times each launch with CUDA events
+  gated e2e     256 envs x 10 ticks, kernel route == brute route
+  train path    the lane-major trainer at 32,768 envs (store and replay
+                2^16, backfill budget 8,192, kernel route): 20 warm-up
+                steps, then 20 timed steps from a snapshot; one
+                sorted_moments launch per step; a replay from the same
+                snapshot times each launch
+  train kernels sorted_moments (grouped) and box_moments against their
+                plain versions on the trainer-built store, 4,096 queries
+  train e2e     256 envs x 40 steps in 20-step episodes, kernel route ==
+                brute route from the same state with the same draws: store
+                and integer outputs
+  trainer store the trainer at 16,384 envs x 300 steps fills a 2^18-row
+                store (the store bench.py serves from), each sorted_moments
+                launch timed; sorted_moments (grouped) against its plain
+                version on that store, 4,096 of the fleet's last
+                observations; the gated driver runs 65,536 envs x 50 ticks
+                against it
 
 Prints one line per phase, a JSON line of kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -86,9 +101,16 @@ def compare(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
     return float((got - ref).abs().max())
 
 
+def bound_ms(n_bytes: float, n_ops: float):
+    """(bound in ms, what bounds it): the larger of bytes over the HBM
+    rate and FP32 operations over the FP32 peak."""
+    b, o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    return max(b, o), ("operations" if o >= b else "bytes")
+
+
 def small_stores(rng, w_driving):
-    """The two small test stores: random with off-lattice action rows,
-    and 40 keys each repeated 50x with a stale invalid tail."""
+    """The per-action kernel's small stores: random with off-lattice
+    action rows, and 40 keys each repeated 50x with a stale invalid tail."""
     d, a = 21, 11
     obs = rng.normal(0, 5, (48, d - 1)).astype(np.float32)
     keys = np.zeros((2000, d), np.float32)
@@ -110,32 +132,131 @@ def small_stores(rng, w_driving):
     yield ("dup50", keys, vals, np.arange(2037) < 2000, q, w_driving)
 
 
-@contextlib.contextmanager
-def timed_launches(store_kernels, record: list):
-    """Wrap the kernel launch with CUDA events (and the operands the
-    bound is computed from) for one run; launches still count."""
-    orig = store_kernels.launch_peraction
+def _group(obs: np.ndarray, a: int) -> np.ndarray:
+    """[A, B, D+1] keys obs || action for every action."""
+    b, d1 = obs.shape
+    return np.ascontiguousarray(np.concatenate([
+        np.broadcast_to(obs[None], (a, b, d1)),
+        np.broadcast_to(np.arange(a, dtype=np.float32)[:, None, None],
+                        (a, b, 1))], axis=-1))
 
-    def timed(prep, queries, qorder, qext):
+
+def band_stores(rng):
+    """The sorted kernel's small stores (the inputs of the JAX package's
+    tests/test_store_rls.py :77, :106 and :499, with queries next to
+    stored rows): (label, keys, values, valid, queries, w, grouped)."""
+    d, n = 21, 700
+    keys = rng.normal(0, 5, (n, d)).astype(np.float32)
+    w = (np.abs(rng.normal(2, 1, d)) + 0.5).astype(np.float32)
+    q = (keys[rng.integers(0, n, 80)]
+         + rng.normal(0, 0.3, (80, d))).astype(np.float32)
+    yield ("flat_random", keys, rng.normal(0, 1, n).astype(np.float32),
+           rng.random(n) < 0.6, q, w, False)
+
+    keys = rng.normal(0, 5, (n, d)).astype(np.float32)
+    keys[:, -1] = rng.integers(0, 11, n)
+    w = w.copy()
+    w[-1] = 0.1
+    obs = (keys[rng.integers(0, n, 48), :-1]
+           + rng.normal(0, 0.3, (48, d - 1))).astype(np.float32)
+    yield ("grouped_random", keys, rng.normal(0, 1, n).astype(np.float32),
+           rng.random(n) < 0.6, _group(obs, 11), w, True)
+
+    # dense-block writes: half the rows are VALID sentinel rows (key 1e9)
+    keys = rng.normal(0, 3, (4096, 5)).astype(np.float32)
+    keys[:, -1] = rng.integers(0, 4, 4096)
+    keys[rng.random(4096) < 0.5] = 1.0e9
+    obs = rng.normal(0, 3, (256, 4)).astype(np.float32)
+    yield ("grouped_dense_sentinel", keys,
+           rng.normal(0, 1, 4096).astype(np.float32), np.ones(4096, bool),
+           _group(obs, 4), np.asarray([2.0, 2.0, 2.0, 2.0, 0.1], np.float32),
+           True)
+
+
+@contextlib.contextmanager
+def timed_launches(module, name: str, record: list, probe):
+    """Wrap ``module.<name>`` (a kernel's launch function) with CUDA
+    events for one run; ``probe(args, out)`` returns the launch's work
+    (kept pairs, matches, bytes, ops).  Launches still count."""
+    orig = getattr(module, name)
+
+    def timed(*args):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = orig(prep, queries, qorder, qext)
+        out = orig(*args)
         end.record()
+        record.append((start, end) + probe(args, out))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def summarize(record: list) -> dict:
+    """Per-launch times and work of a timed run; the bound is that of the
+    mean launch's work (bytes and operations of these inputs)."""
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e, *_ in record]
+    pairs = [float(r[2]) for r in record]
+    matches = [float(r[3]) for r in record]
+    bound, by = bound_ms(float(np.mean([float(r[4]) for r in record])),
+                         float(np.mean([float(r[5]) for r in record])))
+    return dict(kernel_ms_mean=float(np.mean(ms)), kernel_ms_first=ms[0],
+                kernel_ms_last=ms[-1], kernel_ms_sum=float(np.sum(ms)),
+                pairs_after_prune_mean=float(np.mean(pairs)),
+                pairs_first=pairs[0], pairs_last=pairs[-1],
+                matches_mean=float(np.mean(matches)),
+                bound_ms_mean=bound, bound_by=by)
+
+
+def peraction_probe(store_kernels):
+    def probe(args, out):
+        prep, queries, qorder, qext = args
         keep = store_kernels.prune_keep(prep, qext)
         tile_q = torch.full((keep.shape[0],), float(store_kernels._QT),
                             device=keep.device)
         tile_q[-1] = queries.shape[0] - store_kernels._QT * (keep.shape[0] - 1)
         pairs = (keep.sum(1) * tile_q).sum() * prep.sub_n
-        record.append((start, end, pairs, out[..., 0].sum(),
-                       queries.shape[0]))
-        return out
+        matches = out[..., 0].sum()
+        n_pad = prep.keys_t.shape[1]
+        b = queries.shape[0]
+        n_bytes = (n_pad * 24 * 4 + b * (20 * 4 + 8 + 33 * 4)
+                   + 4 * (prep.kb.numel() + prep.kb2.numel() + prep.kbt.numel()))
+        return pairs, matches, n_bytes, 40.0 * pairs + 3.0 * matches
+    return probe
 
-    store_kernels.launch_peraction = timed
-    try:
-        yield
-    finally:
-        store_kernels.launch_peraction = orig
+
+def sorted_probe(store_kernels):
+    def probe(args, out):
+        (ops,) = args
+        d, q = ops.q_t.shape
+        keep = store_kernels.sorted_prune_keep(ops)
+        tile_q = torch.full((keep.shape[0],), float(store_kernels._SQT),
+                            device=keep.device)
+        tile_q[-1] = q - store_kernels._SQT * (keep.shape[0] - 1)
+        pairs = (keep.sum(1) * tile_q).sum() * store_kernels._SSUB_N
+        matches = out[:, 0].sum()
+        n_bytes = 4 * ((d + 2) * ops.keys_t.shape[1] + (d + 3) * q
+                       + ops.kb.numel() + ops.qb.numel() + d + 1)
+        return pairs, matches, n_bytes, 2.0 * d * pairs + 3.0 * matches
+    return probe
+
+
+def brute_work(n_rows: int, n_q: int, d: int, matches: float):
+    """(bytes, ops) of the brute kernel: every pair is tested."""
+    return (4 * ((d + 2) * n_rows + (d + 3) * n_q + d),
+            2.0 * d * n_rows * n_q + 3.0 * matches)
+
+
+def snapshot(state):
+    """A copy of a trainer state (every tensor cloned)."""
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    return type(state)(*(snapshot(x) for x in state))
 
 
 def main() -> int:
@@ -151,14 +272,18 @@ def main() -> int:
     sys.path.insert(0, here)
 
     from dcarl_tpu_torch import disable_tf32
-    from dcarl_tpu_torch.config import EnvConfig, driving_store_config
+    from dcarl_tpu_torch.config import (DCARLConfig, EnvConfig,
+                                        driving_store_config)
     from dcarl_tpu_torch.env.driving_env import in_state_indices
     from dcarl_tpu_torch.env.scenario import t_intersection
     from dcarl_tpu_torch.ops import _cuda, store_kernels
     from dcarl_tpu_torch.planning import fast_rollout as fr
+    from dcarl_tpu_torch.train_fast import make_trainer_fast
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
+    sk = store_kernels
 
     # --- device
     disable_tf32()
@@ -185,6 +310,51 @@ def main() -> int:
     sc = t_intersection(env_cfg)
     idx = in_state_indices(sc)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    hw = torch.as_tensor(scfg.half_widths, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(SEED)
+    max_err = {"peraction_moments": 0.0, "sorted_moments": 0.0,
+               "box_moments": 0.0}
+
+    def note_err(kernel, err):
+        max_err[kernel] = max(max_err[kernel], err)
+
+    # --- every kernel against its plain version on small stores
+    for label, k, v, m, q, w in small_stores(rng, scfg.half_widths):
+        t = [torch.as_tensor(np.asarray(a), device=dev) for a in (k, v, m, q, w)]
+        prep = sk.prepare_peraction_store(t[0], t[1], t[2], t[4].float(), 11)
+        got = sk.query_peraction_prepared(prep, t[3].contiguous())
+        torch.cuda.synchronize()
+        err = compare(got, sk.peraction_moments_plain(prep, t[3]), label)
+        note_err("peraction_moments", err)
+        emit("kernel_vs_plain", kernel="peraction_moments", store=label,
+             rows=k.shape[0], queries=q.shape[0], max_abs_err=err)
+    for label, k, v, m, q, w, grouped in band_stores(rng):
+        t = [torch.as_tensor(np.asarray(a), device=dev) for a in (k, v, m, q, w)]
+        if grouped:
+            ops, _ = sk.grouped_query_operands(*t)
+        else:
+            ops, _ = sk.sorted_query_operands(*t)
+        got = sk.sorted_moments(ops)
+        torch.cuda.synchronize()
+        err = compare(got, sk.sorted_moments_plain(ops), label)
+        note_err("sorted_moments", err)
+        flat_q = t[3].reshape(-1, t[3].shape[-1])
+        if grouped:
+            got_api = sk.box_query_moments_grouped(*t).reshape(-1, 3)
+        else:
+            got_api = sk.box_query_moments_sorted(*t)
+        compare(got_api, sk.brute_moments_plain(t[0], t[1], t[2], flat_q,
+                                                t[4]), label + "_vs_raw")
+        emit("kernel_vs_plain", kernel="sorted_moments", store=label,
+             rows=k.shape[0], queries=flat_q.shape[0], max_abs_err=err,
+             matches=int(got[:, 0].sum()))
+        if label == "flat_random":
+            got = sk.box_query_moments_brute(*t)
+            torch.cuda.synchronize()
+            err = compare(got, sk.brute_moments_plain(*t), label)
+            note_err("box_moments", err)
+            emit("kernel_vs_plain", kernel="box_moments", store=label,
+                 rows=k.shape[0], queries=q.shape[0], max_abs_err=err)
 
     # --- store fill: 16,384 rule-driven envs x 16 ticks = 2^18 rows
     fill_b, fill_t = 16384, 16
@@ -214,25 +384,9 @@ def main() -> int:
     if n_rows != 1 << 18 or not torch.isfinite(s_keys).all():
         fail("store fill")
 
-    # --- kernel against its plain version
-    hw = torch.as_tensor(scfg.half_widths, dtype=torch.float32, device=dev)
-    rng = np.random.default_rng(SEED)
-    max_err = 0.0
-    for label, k, v, m, q, w in small_stores(rng, scfg.half_widths):
-        t = [torch.as_tensor(np.asarray(a), device=dev) for a in (k, v, m, q, w)]
-        prep = store_kernels.prepare_peraction_store(t[0], t[1], t[2],
-                                                     t[4].float(), 11)
-        got = store_kernels.query_peraction_prepared(prep, t[3].contiguous())
-        torch.cuda.synchronize()
-        err = compare(got, store_kernels.peraction_moments_plain(prep, t[3]),
-                      label)
-        max_err = max(max_err, err)
-        emit("kernel_vs_plain", store=label, rows=k.shape[0], queries=q.shape[0],
-             max_abs_err=err)
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prep = store_kernels.prepare_peraction_store(s_keys, s_vals, s_valid, hw, 11)
+    prep = sk.prepare_peraction_store(s_keys, s_vals, s_valid, hw, 11)
     torch.cuda.synchronize()
     prepare_ms = (time.perf_counter() - t0) * 1e3
     init_g, run_g = fr.make_gated_driver_fast(sc, env_cfg, store_cfg=scfg,
@@ -241,68 +395,63 @@ def main() -> int:
     carry0 = init_g(main_b, gen)
     q_main = fr._obs_ori_soa(carry0, idx).T.contiguous()      # tick-0 queries
     q_sub = q_main[:4096].contiguous()
-    got = store_kernels.query_peraction_prepared(prep, q_sub)
+    got = sk.query_peraction_prepared(prep, q_sub)
     torch.cuda.synchronize()
-    ref = store_kernels.peraction_moments_plain(prep, q_sub)
+    ref = sk.peraction_moments_plain(prep, q_sub)
     err = compare(got, ref, "main_store")
-    max_err = max(max_err, err)
-    plain_ms = cuda_ms(lambda: store_kernels.peraction_moments_plain(prep, q_sub))
-    kern_sub_ms = cuda_ms(lambda: store_kernels.query_peraction_prepared(prep, q_sub))
-    emit("kernel_vs_plain", store="main_path", rows=n_rows, queries=4096,
-         max_abs_err=err, matches=int(ref[..., 0].sum()),
-         kernel_ms=kern_sub_ms, plain_ms=plain_ms, prepare_ms=prepare_ms)
+    note_err("peraction_moments", err)
+    pa_plain_ms = cuda_ms(lambda: sk.peraction_moments_plain(prep, q_sub))
+    pa_sub_ms = cuda_ms(lambda: sk.query_peraction_prepared(prep, q_sub))
+    emit("kernel_vs_plain", kernel="peraction_moments", store="main_path",
+         rows=n_rows, queries=4096, max_abs_err=err,
+         matches=int(ref[..., 0].sum()), kernel_ms=pa_sub_ms,
+         plain_ms=pa_plain_ms, prepare_ms=prepare_ms)
 
-    # --- main path: gated driver, kernel route, counted
-    _cuda.LAUNCHES.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, out = run_g(carry0, main_t, s_keys, s_vals, s_valid,
-                   generator=torch.Generator(device=dev).manual_seed(SEED + 1))
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
-    reward, done, passed, collided, executed, gated = out
-    gate_share = float((gated > 0).float().mean())
-    if launches.get("peraction_moments", 0) != main_t:
-        fail(f"kernel launches {launches} != {main_t} ticks")
-    if gate_share <= 0:
-        fail("the gate never fired on the main path")
-    if reward.shape != (main_t, main_b) or not torch.isfinite(reward).all():
-        fail("main-path rewards not finite or misshapen")
-
-    # replay of the same run, each launch timed by CUDA events
-    record = []
-    with timed_launches(store_kernels, record):
+    def gated_path(label, keys, vals, valid, seed):
+        """The gated driver at 65,536 envs x 50 ticks, counted, then a
+        replay of the same run with each launch timed."""
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.LAUNCHES.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_g(carry0, main_t, s_keys, s_vals, s_valid,
-              generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+        _, out = run_g(carry0, main_t, keys, vals, valid,
+                       generator=torch.Generator(device=dev).manual_seed(seed))
         torch.cuda.synchronize()
-        replay_s = time.perf_counter() - t0
-    kern_ms = [s.elapsed_time(e) for s, e, *_ in record]
-    pairs = [float(p) for _, _, p, _, _ in record]
-    matches = [float(m) for _, _, _, m, _ in record]
-    ops = [40.0 * p + 3.0 * m for p, m in zip(pairs, matches)]
-    n_pad = prep.keys_t.shape[1]
-    bytes_ = (n_pad * 24 * 4 + main_b * (20 * 4 + 8 + 33 * 4)
-              + 4 * (prep.kb.numel() + prep.kb2.numel() + prep.kbt.numel()))
-    bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = float(np.mean(ops)) / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bound_bytes_ms, bound_ops_ms)
-    emit("main_path", envs=main_b, ticks=main_t, store_rows=n_rows,
-         env_steps_per_s=main_b * main_t / run_s, seconds=run_s,
-         replay_env_steps_per_s=main_b * main_t / replay_s,
-         prepare_ms=prepare_ms, kernel_ms_mean=float(np.mean(kern_ms)),
-         kernel_ms_first=kern_ms[0], kernel_ms_last=kern_ms[-1],
-         kernel_share_of_replay=sum(kern_ms) / (replay_s * 1e3),
-         launches=launches, gate_share=gate_share,
-         done_share=float(done.float().mean()),
-         pairs_after_prune_mean=float(np.mean(pairs)),
-         pairs_total=float(main_b) * n_pad, matches_mean=float(np.mean(matches)),
-         bound_bytes_ms=bound_bytes_ms, bound_ops_ms=bound_ops_ms,
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, gpu=gpu)
+        run_s = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        reward, done, passed, collided, executed, gated = out
+        gate_share = float((gated > 0).float().mean())
+        if launches != {"peraction_moments": main_t}:
+            fail(f"{label}: kernel launches {launches} != {main_t} ticks")
+        if reward.shape != (main_t, main_b) or not torch.isfinite(reward).all():
+            fail(f"{label}: rewards not finite or misshapen")
+        record = []
+        with timed_launches(sk, "launch_peraction", record,
+                            peraction_probe(sk)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_g(carry0, main_t, keys, vals, valid,
+                  generator=torch.Generator(device=dev).manual_seed(seed))
+            torch.cuda.synchronize()
+            replay_s = time.perf_counter() - t0
+        summ = summarize(record)
+        emit(label, envs=main_b, ticks=main_t, store_rows=int(valid.sum()),
+             env_steps_per_s=main_b * main_t / run_s, seconds=run_s,
+             replay_env_steps_per_s=main_b * main_t / replay_s,
+             kernel_share_of_replay=summ["kernel_ms_sum"] / (replay_s * 1e3),
+             launches=launches, gate_share=gate_share,
+             done_share=float(done.float().mean()),
+             pairs_total=float(main_b) * float(keys.shape[0]), **summ,
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, gpu=gpu)
+        return launches, summ, gate_share
 
-    # --- end-to-end check: kernel route == brute reference route
+    # --- gated main path on the rule-filled store
+    pa_launches, pa_summ, _ = gated_path("main_path", s_keys, s_vals, s_valid,
+                                         SEED + 1)
+    if pa_summ["kernel_ms_mean"] <= 0:
+        fail("gated path: no kernel time")
+
+    # --- gated end-to-end check: kernel route == brute reference route
     outs = []
     for use_kernel in (True, False):
         init_c, run_c = fr.make_gated_driver_fast(sc, env_cfg, store_cfg=scfg,
@@ -319,19 +468,237 @@ def main() -> int:
         fail("e2e: rewards differ between kernel and reference routes")
     emit("e2e_check", envs=256, ticks=10, gate_share=float(
         (outs[0][5] > 0).float().mean()), integer_outputs_equal=True)
+    del prep, s_keys, s_vals, s_valid, obs_all, obs_ticks
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "peraction_moments", "route": "cuda",
-        "source": "dcarl_tpu_torch/csrc/peraction_moments.cu",
-        "replaces": "dcarl_tpu/ops/pallas_store.py:490",
-        "launches": launches["peraction_moments"],
-        "max_abs_err": max_err,
-        "ms": float(np.mean(kern_ms)),
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
-        "library_ms": None,
-    }]}), flush=True)
+    # --- train path: the trainer at bench.py's width, kernel route
+    dcfg = DCARLConfig(store=scfg)
+    tr_b, tr_cap, warm, timed = 32768, 1 << 16, 20, 20
+    torch.cuda.reset_peak_memory_stats()
+    init_tr, step_tr, learner, factory = make_trainer_fast(
+        dcfg, batch_per_device=tr_b, store_capacity_per_device=tr_cap,
+        replay_capacity_per_device=tr_cap, backfill_budget_per_step=8192,
+        use_kernel=True)
+    t0 = time.perf_counter()
+    state = init_tr(SEED)
+    state, _ = factory(warm)(state, torch.Generator(device=dev).manual_seed(7))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    snap, snap_learner = snapshot(state), learner.state_dict()
+    run_timed = factory(timed)
+    _cuda.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_end, ms = run_timed(snap, torch.Generator(device=dev).manual_seed(8))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    tr_launches = dict(_cuda.LAUNCHES)
+    if tr_launches != {"sorted_moments": timed}:
+        fail(f"train path: kernel launches {tr_launches} != {timed} steps")
+    loss = ms.loss
+    if not torch.isfinite(loss).all():
+        fail("train path: loss not finite")
+    # the 2^16-row ring fills during warm-up; growth is read from the
+    # cumulative slots written
+    grown = int(st_end.store_total[0]) - int(snap.store_total[0])
+    if not (grown > 0 and int(ms.store_rows[-1]) > 0):
+        fail("train path: the store did not grow")
+    learner.load_state_dict(snap_learner)
+    record = []
+    with timed_launches(sk, "launch_sorted", record, sorted_probe(sk)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_timed(snap, torch.Generator(device=dev).manual_seed(8))
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+    so_summ = summarize(record)
+    emit("train_path", envs=tr_b, warmup_steps=warm, steps=timed,
+         store_capacity=tr_cap, warmup_seconds=warm_s, seconds=train_s,
+         train_env_steps_per_s=tr_b * timed / train_s,
+         replay_env_steps_per_s=tr_b * timed / replay_s,
+         kernel_share_of_replay=so_summ["kernel_ms_sum"] / (replay_s * 1e3),
+         launches=tr_launches, loss_last=float(loss[-1]),
+         loss_mean=float(loss.mean()),
+         store_rows_start=int(snap.store_size[0]),
+         store_rows=int(ms.store_rows[-1]), store_slots_written=grown,
+         rule_fraction=float(ms.rule_fraction.mean()),
+         dropped_records=int(ms.dropped_records.sum()),
+         reward_mean=float(ms.reward_mean.mean()),
+         done_count=int(ms.done_count.sum()), **so_summ,
+         pairs_total_per_launch=float(tr_b) * tr_cap,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, gpu=gpu)
+
+    # --- the sorted and brute kernels on the trainer-built store
+    valid_tr = torch.arange(tr_cap, device=dev) < st_end.store_size[0]
+    k_tr, v_tr = st_end.store_keys[0], st_end.store_values[0]
+    # in lockstep the ring holds records from a window behind the fleet,
+    # which the fleet's own observations do not meet: half the queries
+    # are the fleet's, half sit next to stored rows (action 0)
+    obs_q = torch.cat([st_end.obs_ori[0].T[:2048],
+                       k_tr[:2048, :-1] + 0.1 * torch.randn(
+                           2048, 20, generator=gen, device=dev)])
+    q_tr = torch.cat([obs_q, torch.zeros_like(obs_q[:, :1])], 1).contiguous()
+    ops, _ = sk.grouped_query_operands(k_tr, v_tr, valid_tr, q_tr[None], hw)
+    got = sk.sorted_moments(ops)
+    torch.cuda.synchronize()
+    ref = sk.sorted_moments_plain(ops)
+    err = compare(got, ref, "trainer_store_sorted")
+    note_err("sorted_moments", err)
+    so_plain_ms = cuda_ms(lambda: sk.sorted_moments_plain(ops))
+    so_sub_ms = cuda_ms(lambda: sk.sorted_moments(ops))
+    keep = sk.sorted_prune_keep(ops)
+    emit("kernel_vs_plain", kernel="sorted_moments", store="trainer_store",
+         rows=int(valid_tr.sum()), queries=4096, max_abs_err=err,
+         matches=int(ref[:, 0].sum()), kernel_ms=so_sub_ms,
+         plain_ms=so_plain_ms, kept_subslice_share=float(keep.float().mean()))
+    got = sk.box_query_moments_brute(k_tr, v_tr, valid_tr, q_tr, hw)
+    torch.cuda.synchronize()
+    ref = sk.brute_moments_plain(k_tr, v_tr, valid_tr, q_tr, hw)
+    err = compare(got, ref, "trainer_store_brute")
+    note_err("box_moments", err)
+    bx_ms = cuda_ms(lambda: sk.box_query_moments_brute(k_tr, v_tr, valid_tr,
+                                                       q_tr, hw))
+    bx_plain_ms = cuda_ms(lambda: sk.brute_moments_plain(k_tr, v_tr, valid_tr,
+                                                         q_tr, hw))
+    # and the sorted kernel through its wrapper on the same queries
+    compare(sk.box_query_moments_grouped(k_tr, v_tr, valid_tr, q_tr[None],
+                                         hw)[0], ref, "trainer_store_grouped")
+    bx_bound = bound_ms(*brute_work(tr_cap, 4096, 21, float(ref[:, 0].sum())))
+    emit("kernel_vs_plain", kernel="box_moments", store="trainer_store",
+         rows=tr_cap, queries=4096, max_abs_err=err,
+         matches=int(ref[:, 0].sum()), kernel_ms=bx_ms, plain_ms=bx_plain_ms,
+         bound_ms=bx_bound[0], bound_by=bx_bound[1])
+    del snap, state, st_end, ops, got, ref
+    torch.cuda.empty_cache()
+
+    # --- train end-to-end check: kernel route == brute route, same draws.
+    # 20-step episodes, so the second episode's queries meet the first
+    # one's records and the gate sees real statistics
+    small = dict(batch_per_device=256, store_capacity_per_device=1 << 13,
+                 replay_capacity_per_device=1 << 12,
+                 backfill_budget_per_step=512)
+    e2e_cfg = DCARLConfig(store=scfg, env=EnvConfig(max_episode_steps=20))
+    e2e_steps = 40
+    runs = []
+    shared = None
+    for use_kernel in (True, False):
+        init_e, step_e, learner_e, _ = make_trainer_fast(
+            e2e_cfg, use_kernel=use_kernel, **small)
+        st = init_e(SEED + 4)
+        if shared is None:
+            shared = learner_e.state_dict()
+            dgen = torch.Generator(device=dev).manual_seed(SEED + 5)
+            draws = [step_e.draw(dgen) for _ in range(e2e_steps)]
+        learner_e.load_state_dict(shared)
+        egen = torch.Generator(device=dev).manual_seed(SEED + 6)
+        ms_e = []
+        for d in draws:
+            st, m = step_e.with_draws(st, d, egen)
+            ms_e.append(m)
+        runs.append((st, ms_e))
+    (sa, ma), (sb, mb) = runs
+    for field in ("store_keys", "store_size", "store_head", "store_total",
+                  "traj_len", "traj_act"):
+        if not torch.equal(getattr(sa, field), getattr(sb, field)):
+            fail(f"train e2e: {field} differs between kernel and brute routes")
+    for field in ("done_count", "pass_count", "collision_count",
+                  "rule_fraction", "store_rows", "dropped_records"):
+        if not all(torch.equal(getattr(x, field), getattr(y, field))
+                   for x, y in zip(ma, mb)):
+            fail(f"train e2e: {field} differs between kernel and brute routes")
+    if not torch.allclose(sa.store_values, sb.store_values, rtol=1e-5,
+                          atol=1e-6):
+        fail("train e2e: store values differ")
+    rule_frac = torch.stack([m.rule_fraction for m in ma])
+    if not float(rule_frac.min()) < 1.0:
+        fail("train e2e: the gate never let the learner act (no matches)")
+    emit("train_e2e_check", envs=256, steps=e2e_steps, episode_steps=20,
+         store_rows=int(sa.store_size[0]),
+         rule_fraction_mean=float(rule_frac.mean()),
+         rule_fraction_min=float(rule_frac.min()),
+         integer_outputs_equal=True)
+
+    # --- the gated driver on a trainer-built store (bench.py:169-210)
+    fill_tb, fill_steps, fill_cap = 16384, 300, 1 << 18
+    init_f, _, _, factory_f = make_trainer_fast(
+        dcfg, batch_per_device=fill_tb, store_capacity_per_device=fill_cap,
+        replay_capacity_per_device=1 << 14, backfill_budget_per_step=4096,
+        use_kernel=True)
+    _cuda.LAUNCHES.clear()
+    fill_record = []
+    with timed_launches(sk, "launch_sorted", fill_record, sorted_probe(sk)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_f, ms_f = factory_f(fill_steps)(
+            init_f(SEED + 7), torch.Generator(device=dev).manual_seed(SEED + 8))
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+    fill_launches = dict(_cuda.LAUNCHES)
+    fill_summ = summarize(fill_record)
+    if fill_launches != {"sorted_moments": fill_steps}:
+        fail(f"trainer fill: launches {fill_launches} != {fill_steps}")
+    f_rows = int(st_f.store_size[0])
+    f_keys, f_vals = st_f.store_keys[0], st_f.store_values[0]
+    f_valid = torch.arange(fill_cap, device=dev) < f_rows
+    n_unique_f = torch.unique(f_keys[f_valid], dim=0).shape[0]
+    emit("trainer_store_fill", envs=fill_tb, steps=fill_steps,
+         store_rows=f_rows, unique_rows=n_unique_f, seconds=fill_s,
+         train_env_steps_per_s=fill_tb * fill_steps / fill_s,
+         dropped_records=int(ms_f.dropped_records.sum()),
+         loss_last=float(ms_f.loss[-1]),
+         rule_fraction_last=float(ms_f.rule_fraction[-1]),
+         kernel_share=fill_summ["kernel_ms_sum"] / (fill_s * 1e3),
+         **{"sorted_" + k: v for k, v in fill_summ.items()})
+    if not torch.isfinite(ms_f.loss).all() or f_rows <= 0:
+        fail("trainer fill: loss not finite or empty store")
+    # the sorted kernel against its plain version on the fill's own
+    # store and 4,096 of its fleet's last observations (action 0)
+    q_f = st_f.obs_ori[0].T[:4096]
+    q_f = torch.cat([q_f, torch.zeros_like(q_f[:, :1])], 1).contiguous()
+    ops, _ = sk.grouped_query_operands(f_keys, f_vals, f_valid, q_f[None], hw)
+    got = sk.sorted_moments(ops)
+    torch.cuda.synchronize()
+    ref = sk.sorted_moments_plain(ops)
+    err = compare(got, ref, "trainer_fill_store_sorted")
+    note_err("sorted_moments", err)
+    emit("kernel_vs_plain", kernel="sorted_moments", store="trainer_fill",
+         rows=f_rows, queries=4096, max_abs_err=err,
+         matches=int(ref[:, 0].sum()),
+         max_matches_per_query=int(ref[:, 0].max()))
+    del st_f, init_f, factory_f, ops, got, ref
+    torch.cuda.empty_cache()
+    ts_launches, ts_summ, ts_gate = gated_path(
+        "gated_on_trainer_store", f_keys, f_vals, f_valid, SEED + 9)
+
+    emit("done", seconds=time.perf_counter() - t_start,
+         gated_on_trainer_store_gate_share=ts_gate)
+    print(json.dumps({"kernels": [
+        {"name": "peraction_moments", "route": "cuda",
+         "source": "dcarl_tpu_torch/csrc/peraction_moments.cu",
+         "replaces": "dcarl_tpu/ops/pallas_store.py:490",
+         "launches": pa_launches["peraction_moments"],
+         "max_abs_err": max_err["peraction_moments"],
+         "ms": pa_summ["kernel_ms_mean"], "plain_ms": pa_plain_ms,
+         "bound_ms": pa_summ["bound_ms_mean"],
+         "bound_by": pa_summ["bound_by"], "library_ms": None},
+        {"name": "sorted_moments", "route": "cuda",
+         "source": "dcarl_tpu_torch/csrc/sorted_moments.cu",
+         "replaces": "dcarl_tpu/ops/pallas_store.py:71",
+         "launches": tr_launches["sorted_moments"],
+         "max_abs_err": max_err["sorted_moments"],
+         "ms": so_summ["kernel_ms_mean"], "plain_ms": so_plain_ms,
+         "bound_ms": so_summ["bound_ms_mean"],
+         "bound_by": so_summ["bound_by"], "library_ms": None},
+        {"name": "box_moments", "route": "cuda",
+         "source": "dcarl_tpu_torch/csrc/box_moments.cu",
+         "replaces": "dcarl_tpu/ops/pallas_store.py:32",
+         # off both main paths: no launch in the counted runs
+         "launches": tr_launches.get("box_moments", 0)
+         + pa_launches.get("box_moments", 0),
+         "max_abs_err": max_err["box_moments"],
+         "ms": bx_ms, "plain_ms": bx_plain_ms, "bound_ms": bx_bound[0],
+         "bound_by": bx_bound[1], "library_ms": None},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

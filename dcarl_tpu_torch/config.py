@@ -1,5 +1,5 @@
-"""Configuration of the PyTorch port: the store, lattice and env
-constants its deployment path reads.
+"""Configuration of the PyTorch port: the store, lattice, env and
+learner constants its drivers and trainer read.
 
 A copy, not an import, of the matching dataclasses in the JAX package
 (``dcarl_tpu/config.py``): the port stays free of that package.  Field
@@ -12,6 +12,22 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ConfidenceConfig:
+    """Hoeffding-style confidence-bound constants of the reference demos
+    (Simulation_1/test_DCARL.py:10-28): value support [loc, loc+scale],
+    level alpha, bound cap and the data-count gate."""
+
+    alpha: float = 0.05
+    loc: float = -50.0
+    scale: float = 150.0
+    value_max: float = 100.0
+    n_thres: int = 10
+    rule_action: int = 0
+    rule_prior: float = 100.0   # optimistic init for the rule action
+    other_prior: float = -50.0  # pessimistic init for other actions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,3 +193,46 @@ class EnvConfig:
     max_steer: float = 1.0
     max_accel: float = 5.0
     max_brake: float = 8.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DQNConfig:
+    """Learner hyper-parameters (drl_library/dqn/dqn.py:253-271):
+    epsilon 0.9 -> 0.1 over 1e6 frames, beta 0.4 -> 1.0 over 1e3,
+    prioritized replay alpha 0.6."""
+
+    gamma: float = 0.95
+    lr: float = 1e-3
+    batch_size: int = 32
+    replay_capacity: int = 1 << 20
+    priority_alpha: float = 0.6
+    beta_start: float = 0.4
+    beta_frames: int = 1000
+    epsilon_start: float = 0.9
+    epsilon_final: float = 0.1
+    epsilon_decay: float = 1_000_000.0
+    target_update_every: int = 10_000
+    no_data_punishment: float = -10.0
+    ucb_c: float = 5.0
+    hidden_dim: int = 128
+    attention_width: int = 3
+    token_dim: int = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Axis names of a multi-device layout: envs shard over 'env', the
+    confidence dataset over 'store'."""
+
+    env_axis: str = "env"
+    store_axis: str = "store"
+
+
+@dataclasses.dataclass(frozen=True)
+class DCARLConfig:
+    confidence: ConfidenceConfig = ConfidenceConfig()
+    store: StoreConfig = StoreConfig()
+    werling: WerlingConfig = WerlingConfig()
+    env: EnvConfig = EnvConfig()
+    dqn: DQNConfig = DQNConfig()
+    mesh: MeshConfig = MeshConfig()

@@ -1,10 +1,17 @@
-"""Confidence store queries: the R-tree replacement's moment oracle.
+"""Confidence store: the R-tree replacement's dataset and its queries.
 
-A box query asks, for each query point, how many stored boxes
-``[key - w, key + w]`` contain it and the (sum, sum of squares) of their
-values (deepq/RLS.py:161-181).  ``_raw_moments`` answers it by brute
-force and is the oracle every faster path is held against; the gated
-driver's kernel route lives in ``ops/store_kernels.py``.
+The store is a fixed-capacity structure of arrays (keys, actions,
+values, size, head) with masked ring inserts (RLS.py:185-215 under a
+finite budget).  A box query asks, for each query point, how many stored
+boxes ``[key - w, key + w]`` contain it and the (sum, sum of squares) of
+their values (deepq/RLS.py:161-181).  ``_raw_moments`` answers it by
+brute force and is the oracle every faster path is held against; the
+kernel routes live in ``ops/store_kernels.py``.
+
+Every function here is functional (new tensors out, inputs untouched)
+and runs on the device of its inputs with no host synchronisation: the
+insert scatters through one spare "dump" row instead of a data-dependent
+selection.
 
 Semantics: containment is ``all(|key_d - q_d| <= w_d)``, variance is the
 population variance, and an empty match reports mean/var/sigma = -1
@@ -13,7 +20,7 @@ population variance, and an empty match reports mean/var/sigma = -1
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,6 +37,101 @@ FIELD_HALF_WIDTHS = (
 
 # Key of rows that must match no query (far outside any real state).
 SENTINEL_KEY = 1.0e9
+
+
+class ConfidenceStore(NamedTuple):
+    """Fixed-capacity {key, action, value} dataset (SoA layout)."""
+
+    keys: torch.Tensor     # [N, D] state||action keys
+    actions: torch.Tensor  # [N] recorded action
+    values: torch.Tensor   # [N] recorded return
+    size: torch.Tensor     # [] i32 valid rows (== min(total, N))
+    head: torch.Tensor     # [] i32 next write slot (ring overwrite when full)
+
+
+def store_init(capacity: int, key_dim: int, dtype=torch.float32,
+               device=None) -> ConfidenceStore:
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    zi = torch.zeros((), dtype=torch.int32, device=device)
+    return ConfidenceStore(keys=z(capacity, key_dim), actions=z(capacity),
+                           values=z(capacity), size=zi, head=zi.clone())
+
+
+def _exclusive_cumsum(m: torch.Tensor) -> torch.Tensor:
+    """Position of each row among the rows before it (i64)."""
+    return torch.cumsum(m, 0) - m
+
+
+def _scatter_rows(buf: torch.Tensor, slots: torch.Tensor,
+                  rows: torch.Tensor) -> torch.Tensor:
+    """``buf`` with ``rows[i]`` written at ``slots[i]``; a slot equal to
+    ``len(buf)`` drops its row (it lands in a spare dump row that is cut
+    off).  The real slots must be distinct."""
+    ext = torch.cat([buf, buf[:1]])
+    ext.index_copy_(0, slots, rows.to(buf.dtype))
+    return ext[:-1]
+
+
+def store_insert(store: ConfidenceStore, keys: torch.Tensor,
+                 actions: torch.Tensor, values: torch.Tensor,
+                 mask: torch.Tensor, policy: str = "ring") -> ConfidenceStore:
+    """Masked batched append (``core/store.py::store_insert``).
+
+    ``policy="ring"`` overwrites the oldest rows once full;
+    ``"reject"`` drops new rows once full.  A batch larger than the
+    capacity keeps only its newest ``capacity`` valid rows, so no two
+    rows share a slot."""
+    if policy not in ("ring", "reject"):
+        raise ValueError(f"unknown store policy {policy!r}")
+    capacity = store.keys.shape[0]
+    if policy == "reject":
+        offs0 = _exclusive_cumsum(mask.to(torch.int64))
+        mask = mask & (store.size + offs0 < capacity)
+    m = mask.to(torch.int64)
+    offsets = _exclusive_cumsum(m)
+    if keys.shape[0] > capacity:
+        # one batch can lap the ring: keep the newest `capacity` rows
+        mask = mask & (offsets >= m.sum() - capacity)
+        m = mask.to(torch.int64)
+        offsets = _exclusive_cumsum(m)
+    slots = (store.head + offsets) % capacity
+    safe = torch.where(mask, slots, capacity)
+    n_added = m.sum()
+    return ConfidenceStore(
+        keys=_scatter_rows(store.keys, safe, keys),
+        actions=_scatter_rows(store.actions, safe, actions),
+        values=_scatter_rows(store.values, safe, values),
+        size=torch.clamp(store.size + n_added, max=capacity).to(torch.int32),
+        head=((store.head + n_added) % capacity).to(torch.int32))
+
+
+def store_insert_dense_block(store: ConfidenceStore, keys: torch.Tensor,
+                             actions: torch.Tensor, values: torch.Tensor,
+                             mask: torch.Tensor) -> ConfidenceStore:
+    """Contiguous block append at ``head``
+    (``core/store.py::store_insert_dense_block``): invalid rows are
+    stamped with :data:`SENTINEL_KEY` keys, occupy capacity and match no
+    query.  Needs ``capacity % M == 0`` (every block write keeps ``head``
+    aligned, so a block never wraps mid-write)."""
+    capacity = store.keys.shape[0]
+    m = keys.shape[0]
+    if capacity % m != 0:
+        raise ValueError(f"capacity {capacity} must be a multiple of the "
+                         f"block size {m} for dense block writes")
+    dt = store.keys.dtype
+    keys_w = torch.where(mask[:, None], keys.to(dt), SENTINEL_KEY)
+    actions_w = torch.where(mask, actions.to(store.actions.dtype), 0.0)
+    values_w = torch.where(mask, values.to(store.values.dtype), 0.0)
+    # block rows head .. head+m-1, as slot indices on the device
+    slots = store.head.to(torch.int64) + torch.arange(m, device=keys.device)
+    return ConfidenceStore(
+        keys=store.keys.index_copy(0, slots, keys_w),
+        actions=store.actions.index_copy(0, slots, actions_w),
+        values=store.values.index_copy(0, slots, values_w),
+        size=torch.clamp(store.size + m, max=capacity).to(torch.int32),
+        head=((store.head + m) % capacity).to(torch.int32))
 
 
 class QueryStats(NamedTuple):
@@ -74,3 +176,31 @@ def moments_to_stats(moments: torch.Tensor) -> QueryStats:
         var=torch.where(empty, -1.0, var),
         sigma=torch.where(empty, -1.0, torch.sqrt(var)),
     )
+
+
+def store_valid(store: ConfidenceStore) -> torch.Tensor:
+    """[N] bool: rows below ``size`` (the rows a query may match)."""
+    n = store.keys.shape[0]
+    return torch.arange(n, device=store.keys.device) < store.size
+
+
+def box_query_stats(store: ConfidenceStore, queries: torch.Tensor,
+                    half_widths: torch.Tensor,
+                    use_kernel: Optional[bool] = None) -> QueryStats:
+    """Visited times and value statistics of a batch of query points
+    (RLS.py:161-181).  ``use_kernel`` (None = on CUDA) answers through
+    the flat sorted-band query (``store_kernels.box_query_moments_sorted``,
+    the CUDA kernel on the card, its plain version on the CPU); False
+    through the brute ``_raw_moments``."""
+    valid = store_valid(store)
+    if use_kernel is None:
+        use_kernel = queries.device.type == "cuda"
+    if use_kernel:
+        from dcarl_tpu_torch.ops.store_kernels import box_query_moments_sorted
+
+        moments = box_query_moments_sorted(store.keys, store.values, valid,
+                                           queries, half_widths)
+    else:
+        moments = _raw_moments(store.keys, store.values, valid, queries,
+                               half_widths)
+    return moments_to_stats(moments)

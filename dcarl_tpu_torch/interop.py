@@ -1,19 +1,24 @@
 """Carry state across from the JAX package.
 
-The system has no model weights: its state is the env carry, the
-confidence store and the reference-path tables.  These helpers take
-that state as numpy arrays (``np.asarray`` of each JAX array; this
-module never imports JAX) and return the port's tensors on a given
-device, so both packages can start from the same carry and store.
+The drivers' state is the env carry, the confidence store and the
+reference-path tables; the trainer adds trajectory buffers, a replay
+buffer and the learner (a flax Q-network and its optax Adam state).
+These helpers take that state as numpy arrays (``np.asarray`` of each
+JAX array, or nested mappings of them; this module never imports JAX)
+and return the port's tensors on a given device, or load them into the
+port's modules, so both packages can start from the same state.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Tuple
+from typing import Any, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from dcarl_tpu_torch.models.networks import AttentionQNet
+from dcarl_tpu_torch.models.replay import Replay
 from dcarl_tpu_torch.planning.fast_rollout import FastEnvState, RefTables
 
 _INT_FIELDS = ("stuck_steps", "step_count")
@@ -65,3 +70,85 @@ def ref_tables_from_numpy(src: Any) -> RefTables:
     f = _fields(src)
     return RefTables(*(np.asarray(f[name], np.float64)
                        for name in RefTables._fields))
+
+
+def fast_train_state_from_numpy(src: Any, device, dtype=torch.float32):
+    """The JAX ``FastTrainState`` (``dcarl_tpu.train_fast``; any object
+    with its fields) as the port's, field by field with the leading shard
+    axis kept.  Env, observations, trajectory buffers and store rows take
+    ``dtype``; the replay keeps its float32 / int32 layout.  The learner
+    fields (``params``, ``target_params``, ``opt_state``) go into the
+    port's learner instead: :func:`attention_qnet_from_flax` and
+    :func:`adam_state_from_optax`."""
+    from dcarl_tpu_torch.train_fast import FastTrainState
+
+    f = _fields(src)
+
+    def to(a, dt):
+        return torch.as_tensor(np.array(np.asarray(a))).to(device, dt)
+
+    rp = _fields(f["replay"])
+    replay = Replay(**{
+        name: to(rp[name], torch.int32 if name in ("action", "size", "head")
+                 else torch.float32) for name in Replay._fields})
+    out = {"env": fast_env_state_from_numpy(f["env"], device, dtype),
+           "replay": replay, "frame": to(f["frame"], torch.int32)}
+    for name in ("obs_ori", "traj_obs", "traj_act", "traj_rew",
+                 "store_keys", "store_actions", "store_values"):
+        out[name] = to(f[name], dtype)
+    for name in ("traj_len", "store_size", "store_head", "store_total"):
+        out[name] = to(f[name], torch.int32)
+    return FastTrainState(**out)
+
+
+_FLAX_LAYERS = (("q_lin",), ("k_lin",), ("v_lin",), ("head", "layers_0"),
+                ("head", "layers_2"), ("head", "layers_4"))
+
+
+def _flax_dense_pairs(tree: Any, net: AttentionQNet
+                      ) -> Iterator[Tuple[Mapping[str, Any], nn.Linear]]:
+    """(flax ``Dense`` leaf dict, matching ``nn.Linear``) pairs of an
+    AttentionQNet's param tree (with or without the ``params`` level)."""
+    tree = _fields(tree)
+    if "params" in tree:
+        tree = _fields(tree["params"])
+    mods = (net.q_lin, net.k_lin, net.v_lin, net.head[0], net.head[2],
+            net.head[4])
+    for path, mod in zip(_FLAX_LAYERS, mods):
+        node = tree
+        for key in path:
+            node = _fields(node[key])
+        yield node, mod
+
+
+def attention_qnet_from_flax(params: Any, net: AttentionQNet
+                             ) -> AttentionQNet:
+    """Load flax ``AttentionQNet`` params into ``net`` (in place; returns
+    it): a ``Dense`` kernel ``[in, out]`` becomes ``weight = kernel.T``."""
+    with torch.no_grad():
+        for node, lin in _flax_dense_pairs(params, net):
+            lin.weight.copy_(torch.as_tensor(np.array(node["kernel"]).T))
+            lin.bias.copy_(torch.as_tensor(np.array(node["bias"])))
+    return net
+
+
+def adam_state_from_optax(opt_state: Any, optimizer: torch.optim.Adam,
+                          net: AttentionQNet) -> None:
+    """Load ``optax.adam``'s state ``(count, mu, nu)`` (its
+    ``ScaleByAdamState``, alone or first in the chain's tuple) into
+    ``optimizer``, a ``torch.optim.Adam`` over ``net``'s parameters, as
+    each parameter's (step, exp_avg, exp_avg_sq)."""
+    st = opt_state
+    if not hasattr(st, "mu"):
+        st = next(s for s in opt_state if hasattr(s, "mu"))
+    step = float(np.asarray(st.count))
+    pairs = zip(_flax_dense_pairs(st.mu, net), _flax_dense_pairs(st.nu, net))
+    for (mu, lin), (nu, _) in pairs:
+        for name, tr in (("kernel", True), ("bias", False)):
+            p = lin.weight if tr else lin.bias
+            m, v = np.array(mu[name]), np.array(nu[name])
+            optimizer.state[p] = {
+                # torch keeps Adam's step on the host unless capturable
+                "step": torch.tensor(step, dtype=torch.float32),
+                "exp_avg": torch.as_tensor(m.T if tr else m).to(p),
+                "exp_avg_sq": torch.as_tensor(v.T if tr else v).to(p)}

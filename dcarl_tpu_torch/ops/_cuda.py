@@ -5,8 +5,8 @@ is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared
 library, loaded with ``ctypes``.  Builds happen at first use, from the
 sources in the package, into ``build/torch_kernels/`` beside the
 package (git-ignored); a library's file name carries a hash of its
-source and flags, so an edited source builds anew and an unchanged one
-is reused.  :func:`build` starts one ``nvcc`` per missing library, all
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source builds anew and an unchanged one is reused.  :func:`build` starts one ``nvcc`` per missing library, all
 at once, and waits for them together.
 
 Nothing here runs at import: the CPU tests import every module on a
@@ -37,6 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES: Dict[str, Sequence] = {
     "peraction_moments": (_P,) * 12 + (_I,) * 4 + (_P, _P),
+    "sorted_moments": (_P,) * 8 + (_I,) * 3 + (_P, _P),
+    "box_moments": (_P,) * 5 + (_I,) * 3 + (_P, _P),
 }
 
 # Launches per kernel: each wrapper adds one where it launches its
@@ -59,7 +61,9 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    # the source and every shared header it may include
+    src = b"".join(p.read_bytes() for p in
+                   [SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -1,7 +1,19 @@
-"""Per-action store query of the gated driver: the counterpart of
-``dcarl_tpu/ops/pallas_store.py`` on its deployment path.
+"""Store queries: the counterparts of ``dcarl_tpu/ops/pallas_store.py``.
 
-The gated driver needs (count, sum v, sum v^2) for every candidate
+Three kernels answer box queries against the confidence store, each a
+CUDA kernel for Hopper with a plain PyTorch version beside it (the
+wrapper takes the plain version for CPU tensors only; for CUDA tensors
+it launches the kernel or raises):
+
+* ``peraction_moments`` (gated driver, below);
+* ``sorted_moments``, ``[Q, 3]`` moments against band-sorted rows with
+  a sub-slice band prune: the flat :func:`box_query_moments_sorted`
+  (``core/store.py::box_query_stats``) and the action-grouped
+  :func:`box_query_moments_grouped` (the trainer's rule-column query);
+* ``box_moments``, the unpruned brute-force ``[Q, 3]`` baseline
+  (:func:`box_query_moments_brute`).
+
+The per-action query: the gated driver needs (count, sum v, sum v^2) for every candidate
 action of every env.  With an integer action lattice and an action
 half-width < 0.5 each stored row matches exactly one action, so one
 20-D containment test per (env, row) plus a scatter of the row's
@@ -26,6 +38,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from dcarl_tpu_torch.core.store import _raw_moments
 from dcarl_tpu_torch.ops import _cuda
 
 # Finite padding key: far outside any real key range (same value as the
@@ -343,3 +356,336 @@ def box_query_moments_peraction(
                                    num_actions=num_actions, n_tile=n_tile,
                                    band_dim=band_dim)
     return query_peraction_prepared(prep, obs_queries)
+
+
+
+# ---------------------------------------------------------------------------
+# [Q, 3] moments against band-sorted rows (csrc/sorted_moments.cu)
+# ---------------------------------------------------------------------------
+
+_SQT = 128      # queries per block (csrc/sorted_moments.cu, box_moments.cu QT)
+_SSUB_N = 256   # rows per staged sub-slice (both kernels' SUB_N)
+_MAX_D = 32     # widest key both kernels take
+
+
+class SortedOperands(NamedTuple):
+    """Operands of the sorted-band kernel.  Rows are sorted by their band
+    key (invalid rows last) and padded to a whole number of sub-slices;
+    queries are sorted by their band key."""
+
+    q_t: torch.Tensor     # [D, Q] f32 queries, band order
+    keys_t: torch.Tensor  # [D, n_pad] f32 rows, band order; padding _PAD
+    vals: torch.Tensor    # [n_pad] f32 (0 on padding)
+    valid: torch.Tensor   # [n_pad] f32 1 / 0 (0 on padding)
+    kb: torch.Tensor      # [2, n_pad / 256] band-key extrema per sub-slice
+    qb: torch.Tensor      # [2, ceil(Q / 128)] band-key extrema per query tile
+    w: torch.Tensor       # [D] f32 half-widths
+    w0: torch.Tensor      # [1] f32 band half-width of the prune
+
+
+def _sorted_operands(keys_s, vals_s, valid_s, sk_s, q_s, qk_s, w, w0
+                     ) -> SortedOperands:
+    """Pad and lay out rows and queries already in band order; the
+    extrema are taken over the same f32 values the kernel compares."""
+    n, d = keys_s.shape
+    dev = keys_s.device
+    n_pad = _round_up(max(n, _SSUB_N), _SSUB_N)
+    keys_t = torch.full((d, n_pad), _PAD, dtype=torch.float32, device=dev)
+    keys_t[:, :n] = keys_s.T
+    vals = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    vals[:n] = vals_s
+    valid = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    valid[:n] = valid_s.to(torch.float32)
+    ks_p = torch.full((n_pad,), _PAD, dtype=torch.float32, device=dev)
+    ks_p[:n] = sk_s
+    q = q_s.shape[0]
+    pad = _round_up(q, _SQT) - q
+    # pad by repeating the last sorted query: the extrema stay exact
+    qk_p = torch.cat([qk_s, qk_s[-1:].expand(pad)])
+    return SortedOperands(
+        q_t=q_s.T.contiguous(), keys_t=keys_t, vals=vals, valid=valid,
+        kb=_extrema(ks_p, _SSUB_N), qb=_extrema(qk_p, _SQT),
+        w=w.contiguous(), w0=w0.reshape(1).contiguous())
+
+
+def sorted_prune_keep(ops: SortedOperands) -> torch.Tensor:
+    """[n_qtiles, n_sub] bool: the (query tile, row sub-slice) pairs the
+    kernel examines, by the band-overlap test it runs."""
+    q_lo, q_hi = ops.qb[0][:, None], ops.qb[1][:, None]
+    return (ops.kb[0] - ops.w0 <= q_hi) & (ops.kb[1] + ops.w0 >= q_lo)
+
+
+def sorted_moments_plain(ops: SortedOperands) -> torch.Tensor:
+    """Plain version of the kernel: [Q, 3] f32 moments in band order, by
+    a brute f32 containment over the same sorted, padded operands, then a
+    float64 ``mask @ [1, v, v^2]`` product (the kernel keeps its sums in
+    f64 too: an f32 sum over tens of thousands of matched rows drifts
+    past the oracle's rtol 1e-4)."""
+    mask = (ops.valid != 0)[None, :].expand(ops.q_t.shape[1], -1).clone()
+    for d in range(ops.q_t.shape[0]):
+        mask &= torch.abs(ops.q_t[d][:, None] - ops.keys_t[d][None, :]) \
+            <= ops.w[d]
+    v = ops.vals.to(torch.float64)
+    feats = torch.stack([torch.ones_like(v), v, v * v], dim=1)   # [n_pad, 3]
+    return (mask.to(torch.float64) @ feats).to(torch.float32)
+
+
+def _check_cuda(tensors: dict, dev: torch.device) -> None:
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_sorted_operands(ops: SortedOperands) -> None:
+    d, q = ops.q_t.shape
+    n_pad = ops.keys_t.shape[1]
+    _check_cuda(ops._asdict(), ops.q_t.device)
+    if not 1 <= d <= _MAX_D or ops.keys_t.shape[0] != d \
+            or ops.w.shape != (d,):
+        raise ValueError(f"the kernel takes 1..{_MAX_D} key dims; got queries "
+                         f"{tuple(ops.q_t.shape)}, rows "
+                         f"{tuple(ops.keys_t.shape)}, w {tuple(ops.w.shape)}")
+    if n_pad % _SSUB_N or ops.vals.shape != (n_pad,) \
+            or ops.valid.shape != (n_pad,) \
+            or ops.kb.shape != (2, n_pad // _SSUB_N):
+        raise ValueError(f"rows must be padded to a multiple of {_SSUB_N} "
+                         "with matching vals, valid and kb")
+    if ops.qb.shape != (2, -(-q // _SQT)) or ops.w0.shape != (1,):
+        raise ValueError("qb must be [2, ceil(Q / 128)] and w0 [1]")
+
+
+def launch_sorted(ops: SortedOperands) -> torch.Tensor:
+    """Launch ``csrc/sorted_moments.cu`` on the current stream: [Q, 3]
+    moments in band order (operands checked by the caller)."""
+    d, q = ops.q_t.shape
+    out = torch.empty((q, 3), dtype=torch.float32, device=ops.q_t.device)
+    fn = _cuda.load("sorted_moments").sorted_moments
+    p = ctypes.c_void_p
+    err = fn(p(ops.q_t.data_ptr()), p(ops.keys_t.data_ptr()),
+             p(ops.vals.data_ptr()), p(ops.valid.data_ptr()),
+             p(ops.kb.data_ptr()), p(ops.qb.data_ptr()), p(ops.w.data_ptr()),
+             p(ops.w0.data_ptr()), q, ops.keys_t.shape[1], d,
+             p(out.data_ptr()),
+             p(torch.cuda.current_stream(ops.q_t.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"sorted_moments launch failed: CUDA error {err}")
+    _cuda.LAUNCHES["sorted_moments"] += 1
+    return out
+
+
+def sorted_moments(ops: SortedOperands) -> torch.Tensor:
+    """[Q, 3] moments in band order: the kernel for CUDA tensors (no
+    fallback), :func:`sorted_moments_plain` for CPU tensors."""
+    dev = ops.q_t.device
+    if dev.type == "cpu":
+        return sorted_moments_plain(ops)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_sorted_operands(ops)
+    return launch_sorted(ops)
+
+
+def _index_dim(x: torch.Tensor, dim: torch.Tensor) -> torch.Tensor:
+    """``x[:, dim]`` for a device-resident index (no host round trip)."""
+    return x.index_select(1, dim.reshape(1))[:, 0]
+
+
+def sorted_query_operands(keys, values, valid, queries, half_widths
+                          ) -> Tuple[SortedOperands, torch.Tensor]:
+    """Band order of the flat query: the band dim is the most selective
+    one, ``argmax(spread / w)`` with spread the mean |x - mean| of the
+    valid rows.  Returns the operands and ``qorder`` [Q] (band position
+    -> query row)."""
+    keys = keys.to(torch.float32)
+    values = values.to(keys.device, torch.float32)
+    queries = queries.to(torch.float32)
+    w = half_widths.to(keys.device, torch.float32)
+    vf = valid.to(torch.float32)
+    cnt = torch.clamp(vf.sum(), min=1.0)
+    mean_d = (vf[:, None] * keys).sum(0) / cnt
+    spread = (vf[:, None] * torch.abs(keys - mean_d)).sum(0) / cnt
+    sdim = torch.argmax(spread / torch.clamp(w, min=1e-9))
+    w0 = w.index_select(0, sdim.reshape(1))
+
+    sk = torch.where(valid, _index_dim(keys, sdim), _PAD)
+    order = torch.argsort(sk, stable=True)
+    qk = _index_dim(queries, sdim)
+    qorder = torch.argsort(qk, stable=True)
+    ops = _sorted_operands(keys[order], values[order], valid[order],
+                           sk[order], queries[qorder], qk[qorder], w, w0)
+    return ops, qorder
+
+
+def box_query_moments_sorted(keys: torch.Tensor,         # [N, D]
+                             values: torch.Tensor,       # [N]
+                             valid: torch.Tensor,        # [N] bool
+                             queries: torch.Tensor,      # [Q, D]
+                             half_widths: torch.Tensor,  # [D]
+                             ) -> torch.Tensor:
+    """[Q, 3] f32 moments (count, sum v, sum v^2) of the valid rows whose
+    boxes contain each query, through the sorted-band kernel
+    (``pallas_store.py::box_query_moments_sorted``)."""
+    if queries.shape[0] == 0:
+        return torch.zeros((0, 3), device=queries.device)
+    ops, qorder = sorted_query_operands(keys, values, valid, queries,
+                                        half_widths)
+    out = sorted_moments(ops)
+    return torch.empty_like(out).index_copy_(0, qorder, out)   # un-sort
+
+
+def grouped_query_operands(keys, values, valid, queries, half_widths,
+                           action_dim: int = -1, band_dim: "int | None" = 1
+                           ) -> Tuple[SortedOperands, "torch.Tensor | None"]:
+    """Band order of the action-grouped query [A, Qa, D]: the composite
+    key ``action * c + key[band_dim]`` (c = 4 span, so actions never
+    band-overlap), one stable [Qa] sort shared by every group.  Returns
+    the operands and ``qorder`` [Qa] (None with ``band_dim=None``)."""
+    a, qa, d = queries.shape
+    keys = keys.to(torch.float32)
+    values = values.to(keys.device, torch.float32)
+    queries = queries.to(torch.float32)
+    w = half_widths.to(keys.device, torch.float32)
+    sdim = action_dim % d
+    qorder = None
+    if band_dim is None:
+        w0 = w[sdim]
+        row_band = keys[:, sdim]
+        q_band = queries.reshape(a * qa, d)[:, sdim]
+    else:
+        w0 = w[band_dim]
+        bvals = keys[:, band_dim]
+        qb = queries[0, :, band_dim]              # same envs in every group
+        # sentinel rows (dense-block writes, |key| ~ 1e9) stay out of the
+        # span, or c would quantize the f32 composite key to steps >> w0
+        real = valid & (torch.abs(bvals) < _PAD / 2)
+        span = torch.maximum(torch.where(real, torch.abs(bvals), 0.0).amax(),
+                             torch.abs(qb).amax()) + w0 + 1.0
+        c = 4.0 * span
+        row_band = keys[:, sdim] * c + bvals
+        qorder = torch.argsort(qb, stable=True)
+        queries = queries[:, qorder]
+        q_band = (queries[:, :, sdim] * c
+                  + queries[:, :, band_dim]).reshape(a * qa)
+        # composite keys reach ~A*c: pad the band test by their f32
+        # rounding so quantization only loosens the prune
+        w0 = w0 + 32.0 * c * 1.2e-7
+    sk = torch.where(valid, row_band, _PAD)
+    order = torch.argsort(sk, stable=True)
+    ops = _sorted_operands(keys[order], values[order], valid[order],
+                           sk[order], queries.reshape(a * qa, d), q_band,
+                           w, w0)
+    return ops, qorder
+
+
+def box_query_moments_grouped(keys: torch.Tensor,         # [N, D]
+                              values: torch.Tensor,       # [N]
+                              valid: torch.Tensor,        # [N] bool
+                              queries: torch.Tensor,      # [A, Qa, D]
+                              half_widths: torch.Tensor,  # [D]
+                              action_dim: int = -1,
+                              band_dim: "int | None" = 1) -> torch.Tensor:
+    """[A, Qa, 3] moments of action-grouped queries (every group holds
+    the same envs) through the sorted-band kernel
+    (``pallas_store.py::box_query_moments_grouped``)."""
+    a, qa, _ = queries.shape
+    if a * qa == 0:
+        return torch.zeros((a, qa, 3), device=queries.device)
+    ops, qorder = grouped_query_operands(keys, values, valid, queries,
+                                         half_widths, action_dim, band_dim)
+    out = sorted_moments(ops).reshape(a, qa, 3)
+    if qorder is not None:
+        out = torch.empty_like(out).index_copy_(1, qorder, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Brute-force [Q, 3] moments (csrc/box_moments.cu)
+# ---------------------------------------------------------------------------
+
+
+class BruteOperands(NamedTuple):
+    q_t: torch.Tensor     # [D, q_pad] f32 queries, padding +inf
+    keys_t: torch.Tensor  # [D, n_pad] f32 rows, padding 0
+    vals: torch.Tensor    # [n_pad] f32
+    valid: torch.Tensor   # [n_pad] f32 1 / 0 (0 on padding)
+    w: torch.Tensor       # [D] f32
+
+
+def brute_operands(keys, values, valid, queries, half_widths) -> BruteOperands:
+    n, d = keys.shape
+    q = queries.shape[0]
+    dev = keys.device
+    n_pad = _round_up(max(n, _SSUB_N), _SSUB_N)
+    q_pad = _round_up(max(q, _SQT), _SQT)
+    keys_t = torch.zeros((d, n_pad), dtype=torch.float32, device=dev)
+    keys_t[:, :n] = keys.T
+    vals = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    vals[:n] = values
+    valid_f = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    valid_f[:n] = valid.to(torch.float32)
+    # padded queries are +inf: they match nothing
+    q_t = torch.full((d, q_pad), torch.inf, dtype=torch.float32, device=dev)
+    q_t[:, :q] = queries.T
+    return BruteOperands(q_t=q_t, keys_t=keys_t, vals=vals, valid=valid_f,
+                         w=half_widths.to(dev, torch.float32).contiguous())
+
+
+def launch_brute(ops: BruteOperands) -> torch.Tensor:
+    """Launch ``csrc/box_moments.cu`` on the current stream: [q_pad, 3]
+    moments (operands checked by the caller)."""
+    d, q_pad = ops.q_t.shape
+    out = torch.empty((q_pad, 3), dtype=torch.float32, device=ops.q_t.device)
+    fn = _cuda.load("box_moments").box_moments
+    p = ctypes.c_void_p
+    err = fn(p(ops.q_t.data_ptr()), p(ops.keys_t.data_ptr()),
+             p(ops.vals.data_ptr()), p(ops.valid.data_ptr()),
+             p(ops.w.data_ptr()), q_pad, ops.keys_t.shape[1], d,
+             p(out.data_ptr()),
+             p(torch.cuda.current_stream(ops.q_t.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"box_moments launch failed: CUDA error {err}")
+    _cuda.LAUNCHES["box_moments"] += 1
+    return out
+
+
+def brute_moments_plain(keys, values, valid, queries, half_widths
+                        ) -> torch.Tensor:
+    """Plain version of the brute kernel: ``core/store.py::_raw_moments``
+    with the f32 containment test and, as in the kernel, the moments
+    summed in f64 (returned as f32)."""
+    return _raw_moments(keys.to(torch.float32), values.to(torch.float64),
+                        valid, queries.to(torch.float32),
+                        half_widths.to(torch.float32))
+
+
+def box_query_moments_brute(keys: torch.Tensor,         # [N, D]
+                            values: torch.Tensor,       # [N]
+                            valid: torch.Tensor,        # [N] bool
+                            queries: torch.Tensor,      # [Q, D]
+                            half_widths: torch.Tensor,  # [D]
+                            ) -> torch.Tensor:
+    """[Q, 3] f32 moments by brute force over every row
+    (``pallas_store.py::box_query_moments_pallas``): the CUDA kernel for
+    CUDA tensors (no fallback), :func:`brute_moments_plain` for CPU
+    tensors."""
+    dev = queries.device
+    if dev.type == "cpu":
+        return brute_moments_plain(keys, values, valid, queries, half_widths)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    d = queries.shape[1]
+    if not 1 <= d <= _MAX_D or keys.ndim != 2 or keys.shape[1] != d \
+            or half_widths.shape != (d,):
+        raise ValueError(f"the kernel takes 1..{_MAX_D} key dims; got keys "
+                         f"{tuple(keys.shape)}, queries {tuple(queries.shape)}")
+    if values.shape != keys.shape[:1] or valid.shape != keys.shape[:1]:
+        raise ValueError("values and valid must be [N]")
+    if queries.shape[0] == 0:
+        return torch.zeros((0, 3), device=dev)
+    ops = brute_operands(keys, values, valid, queries, half_widths)
+    _check_cuda(ops._asdict(), dev)
+    return launch_brute(ops)[:queries.shape[0]]

@@ -18,6 +18,7 @@ jitter.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -243,6 +244,19 @@ class FastLattice(NamedTuple):
     feasible: torch.Tensor   # [P, B]
 
 
+@functools.lru_cache(maxsize=None)
+def _lattice_consts(wcfg: WerlingConfig, dtype: torch.dtype,
+                    device: torch.device):
+    """(Ti [], d_off [n_d, 1], tv [n_v, 1]) of one planner config, made
+    on ``device`` once: a host-to-device copy on every tick would stall
+    the card."""
+    def col(values):
+        return torch.tensor(values, dtype=dtype, device=device)[:, None]
+
+    return (torch.tensor(wcfg.horizons[0], dtype=dtype, device=device),
+            col(wcfg.d_offsets), col(wcfg.target_speeds))
+
+
 def _plan_lattice(s0, c_d, c_d_d, c_speed, tab: RefTables,
                   wcfg: WerlingConfig) -> FastLattice:
     """Werling lattice, batch-last (``werling.plan``).  The spline is
@@ -250,7 +264,7 @@ def _plan_lattice(s0, c_d, c_d_d, c_speed, tab: RefTables,
     offsets share it."""
     dtype, device = s0.dtype, s0.device
     npdt = _NP_DTYPE[dtype]
-    Ti = torch.tensor(wcfg.horizons[0], dtype=dtype, device=device)
+    Ti, d_off, tv = _lattice_consts(wcfg, dtype, device)
     n_t = wcfg.n_time_steps
     n_d, n_v = len(wcfg.d_offsets), len(wcfg.target_speeds)
     t = torch.arange(n_t, dtype=dtype, device=device) * wcfg.dt   # [T]
@@ -258,7 +272,6 @@ def _plan_lattice(s0, c_d, c_d_d, c_speed, tab: RefTables,
 
     zero = torch.zeros_like(s0)
     # Lateral quintics: boundary (c_d, c_d_d, 0) -> (d_off, 0, 0).
-    d_off = torch.tensor(wcfg.d_offsets, dtype=dtype, device=device)[:, None]
     lat = poly.solve_quintic(c_d[None, :], c_d_d[None, :], zero[None, :],
                              d_off, 0.0, 0.0, Ti)           # [n_d, B] coeffs
     lat3 = poly.QuinticCoeffs(*(a[:, None, :] for a in lat))
@@ -266,7 +279,6 @@ def _plan_lattice(s0, c_d, c_d_d, c_speed, tab: RefTables,
     d_ddd = poly.quintic_d3(lat3, t3)
 
     # Longitudinal quartics: (s0, c_speed, 0) -> (tv, 0).
-    tv = torch.tensor(wcfg.target_speeds, dtype=dtype, device=device)[:, None]
     lon = poly.solve_quartic(s0[None, :], c_speed[None, :], zero[None, :],
                              tv, 0.0, Ti)                    # [n_v, B]
     lon3 = poly.QuarticCoeffs(*(a[:, None, :] for a in lon))

@@ -28,7 +28,9 @@ def _t(a):
     return torch.as_tensor(np.asarray(a))
 
 
-@pytest.mark.parametrize("name", ["StoreConfig", "WerlingConfig", "EnvConfig"])
+@pytest.mark.parametrize("name", ["StoreConfig", "WerlingConfig", "EnvConfig",
+                                  "ConfidenceConfig", "DQNConfig",
+                                  "MeshConfig", "DCARLConfig"])
 def test_config_copies_match(name):
     j, t = getattr(jcfg, name)(), getattr(tcfg, name)()
     assert dataclasses.asdict(j) == dataclasses.asdict(t)

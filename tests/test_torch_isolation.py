@@ -38,6 +38,8 @@ def test_port_import_pulls_in_no_jax():
         "import dcarl_tpu_torch.interop\n"
         "import dcarl_tpu_torch.planning.fast_rollout\n"
         "import dcarl_tpu_torch.ops.store_kernels\n"
+        "import dcarl_tpu_torch.train_fast\n"
+        "import dcarl_tpu_torch.models.dqn\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'dcarl_tpu')]\n"
         "assert not bad, bad\n")

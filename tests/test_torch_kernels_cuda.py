@@ -1,4 +1,4 @@
-"""The per-action CUDA kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: without a GPU every test here skips (the kernel has no
 CPU or interpret mode).  On a machine with an H100 and ``nvcc``:
@@ -75,3 +75,101 @@ def test_kernel_rejects_bad_operands(cuda):
                                       n_tile=128)
     with pytest.raises(ValueError):
         K.query_peraction_prepared(small, q)
+
+
+# ---------------------------------------------------------------------------
+# sorted_moments and box_moments
+# ---------------------------------------------------------------------------
+
+
+def _flat_store(rng, n, q, d, valid_p=0.7):
+    keys = rng.normal(0, 5, (n, d)).astype(np.float32)
+    values = rng.normal(0, 1, n).astype(np.float32)
+    valid = rng.random(n) < valid_p
+    # queries next to rows, so that they match something
+    queries = (keys[rng.integers(0, n, q)]
+               + rng.normal(0, 0.5, (q, d))).astype(np.float32)
+    w = (np.abs(rng.normal(2, 1, d)) + 1.5).astype(np.float32)
+    return keys, values, valid, queries, w
+
+
+def _dense_sentinel_store(rng):
+    """The store of tests/test_store_rls.py:499: dense-block writes leave
+    VALID rows whose keys are the 1e9 sentinel."""
+    d, a, qa = 5, 4, 300
+    keys = rng.normal(0, 3, (4096, d)).astype(np.float32)
+    keys[:, -1] = rng.integers(0, a, 4096)
+    keys[rng.random(4096) < 0.5] = 1.0e9
+    values = rng.normal(0, 1, 4096).astype(np.float32)
+    obs = rng.normal(0, 3, (qa, d - 1)).astype(np.float32)
+    qg = np.concatenate([np.broadcast_to(obs[None], (a, qa, d - 1)),
+                         np.broadcast_to(np.arange(a, dtype=np.float32)
+                                         [:, None, None], (a, qa, 1))], -1)
+    w = np.asarray([2.0, 2.0, 2.0, 2.0, 0.1], np.float32)
+    return keys, values, np.ones(4096, bool), np.ascontiguousarray(qg), w
+
+
+def _check(got, ref):
+    assert ref[..., 0].sum() > 0
+    torch.testing.assert_close(got[..., 0], ref[..., 0], rtol=0, atol=0)
+    torch.testing.assert_close(got[..., 1:], ref[..., 1:], rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("n,q,d", [(700, 40, 21), (20000, 3000, 21),
+                                   (5000, 129, 5), (300, 1, 32)])
+def test_sorted_kernel_matches_plain(cuda, n, q, d):
+    arrs = _flat_store(np.random.default_rng(n + q), n, q, d)
+    k, v, m, qq, w = (torch.as_tensor(a, device=cuda) for a in arrs)
+    before = _cuda.LAUNCHES["sorted_moments"]
+    got = K.box_query_moments_sorted(k, v, m, qq, w)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["sorted_moments"] == before + 1
+    ops, qorder = K.sorted_query_operands(k, v, m, qq, w)
+    plain = K.sorted_moments_plain(ops)
+    _check(got, torch.empty_like(plain).index_copy_(0, qorder, plain))
+    # and the brute oracle
+    _check(got, K.brute_moments_plain(k, v, m, qq, w))
+
+
+def test_grouped_kernel_on_dense_sentinel_store(cuda):
+    arrs = _dense_sentinel_store(np.random.default_rng(11))
+    k, v, m, qg, w = (torch.as_tensor(a, device=cuda) for a in arrs)
+    got = K.box_query_moments_grouped(k, v, m, qg, w)
+    torch.cuda.synchronize()
+    ref = K.brute_moments_plain(k, v, m, qg.reshape(-1, 5), w).reshape(got.shape)
+    _check(got, ref)
+    assert ref[1:, :, 0].sum() > 0
+
+
+@pytest.mark.parametrize("n,q,d", [(700, 40, 21), (9000, 1000, 21),
+                                   (1000, 1, 5)])
+def test_brute_kernel_matches_plain(cuda, n, q, d):
+    arrs = _flat_store(np.random.default_rng(n), n, q, d)
+    k, v, m, qq, w = (torch.as_tensor(a, device=cuda) for a in arrs)
+    before = _cuda.LAUNCHES["box_moments"]
+    got = K.box_query_moments_brute(k, v, m, qq, w)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["box_moments"] == before + 1
+    _check(got, K.brute_moments_plain(k, v, m, qq, w))
+
+
+def test_sorted_and_brute_reject_bad_operands(cuda):
+    arrs = _flat_store(np.random.default_rng(0), 500, 10, 21)
+    k, v, m, qq, w = (torch.as_tensor(a, device=cuda) for a in arrs)
+    ops, _ = K.sorted_query_operands(k, v, m, qq, w)
+    with pytest.raises(TypeError):
+        K.sorted_moments(ops._replace(q_t=ops.q_t.half()))
+    with pytest.raises(ValueError):
+        K.sorted_moments(ops._replace(q_t=ops.q_t.T.contiguous().T))
+    with pytest.raises(ValueError):
+        K.sorted_moments(ops._replace(keys_t=ops.keys_t[:, :-1].contiguous()))
+    with pytest.raises(ValueError):
+        K.sorted_moments(ops._replace(qb=ops.qb.cpu()))
+    wide = torch.zeros((500, 33), device=cuda)
+    with pytest.raises(ValueError):
+        K.box_query_moments_brute(wide, v, m, torch.zeros((4, 33),
+                                                          device=cuda),
+                                  torch.ones(33, device=cuda))
+    with pytest.raises(ValueError):
+        K.box_query_moments_brute(k, v[:-1], m, qq, w)

@@ -7,6 +7,7 @@ and the kernel's plain version on the CPU.  Counts must be exact; sums
 are held to the tolerance the JAX package's on-chip parity check uses
 (``bench.py:232``, rtol 1e-4 / atol 1e-3)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +26,7 @@ MOMENT_TOL = dict(rtol=1e-4, atol=1e-3)
 
 
 def _t(a):
-    return torch.as_tensor(np.asarray(a))
+    return torch.as_tensor(np.array(a))
 
 
 def _assert_moments(got, ref):
@@ -289,3 +290,369 @@ def test_query_rejects_what_the_kernel_cannot_take():
                                   _t(w))
     with pytest.raises(ValueError):
         K.prepare_peraction_store(_t(keys), _t(values[:-1]), _t(valid), _t(w))
+
+
+# ---------------------------------------------------------------------------
+# [Q, 3] queries: sorted-band (flat and grouped) and brute, against the
+# interpret-mode Pallas kernels on the inputs of tests/test_store_rls.py
+# ---------------------------------------------------------------------------
+
+
+def _flat_inputs(seed, valid_p, n=700, q=40, d=21):
+    """tests/test_store_rls.py:57 (seed 1, valid 0.8) and :77 (seed 2,
+    valid 0.6), plus ``q`` queries next to stored rows (the random 21-D
+    queries there match nothing)."""
+    rng = np.random.default_rng(seed)
+    keys = np.asarray(rng.normal(0, 5, (n, d)), np.float32)
+    values = np.asarray(rng.normal(0, 1, n), np.float32)
+    valid = rng.random(n) < valid_p
+    queries = np.asarray(rng.normal(0, 5, (q, d)), np.float32)
+    w = np.asarray(np.abs(rng.normal(2, 1, d)) + 0.5, np.float32)
+    near = keys[rng.integers(0, n, q)] + rng.normal(0, 0.3, (q, d))
+    return keys, values, valid, np.concatenate(
+        [queries, near.astype(np.float32)]), w
+
+
+def _grouped_inputs():
+    """tests/test_store_rls.py:106: every action of 24 envs, A = 11, plus
+    24 envs next to stored rows (the random ones there match nothing)."""
+    rng = np.random.default_rng(5)
+    d, a, qa, n = 21, 11, 24, 700
+    keys = np.asarray(rng.normal(0, 5, (n, d)), np.float32)
+    keys[:, -1] = rng.integers(0, a, n)
+    values = np.asarray(rng.normal(0, 1, n), np.float32)
+    valid = rng.random(n) < 0.6
+    obs = np.asarray(rng.normal(0, 5, (qa, d - 1)), np.float32)
+    w = np.asarray(np.abs(rng.normal(2, 1, d)) + 0.5, np.float32)
+    w[-1] = 0.1
+    near = keys[rng.integers(0, n, qa), :-1] + rng.normal(0, 0.3, (qa, d - 1))
+    obs = np.concatenate([obs, near.astype(np.float32)])
+    return keys, values, valid, _group(obs, a), w
+
+
+def _group(obs, a):
+    b, d1 = obs.shape
+    return np.ascontiguousarray(np.concatenate([
+        np.broadcast_to(obs[None], (a, b, d1)),
+        np.broadcast_to(np.arange(a, dtype=np.float32)[:, None, None],
+                        (a, b, 1))], axis=-1))
+
+
+def _dense_sentinel_inputs(seed=11, waves=8):
+    """tests/test_store_rls.py:499: a store written by dense blocks holds
+    VALID rows whose keys are the 1e9 sentinel."""
+    rng = np.random.default_rng(seed)
+    d, a, qa, m, cap = 5, 4, 16, 16, 256
+    store = JS.store_init(cap, d)
+    for _ in range(waves):
+        keys = rng.normal(0, 3, (m, d)).astype(np.float32)
+        keys[:, -1] = rng.integers(0, a, m)
+        vals = rng.normal(0, 1, m).astype(np.float32)
+        mask = rng.random(m) < 0.5
+        store = JS.store_insert_dense_block(
+            store, jnp.asarray(keys), jnp.asarray(keys[:, -1]),
+            jnp.asarray(vals), jnp.asarray(mask))
+    valid = np.arange(cap) < int(store.size)
+    obs = rng.normal(0, 3, (qa, d - 1)).astype(np.float32)
+    w = np.asarray([2.0, 2.0, 2.0, 2.0, 0.1], np.float32)
+    return (np.asarray(store.keys), np.asarray(store.values), valid,
+            _group(obs, a), w)
+
+
+@pytest.mark.parametrize("seed,valid_p", [(1, 0.8), (2, 0.6), (2, 0.0)])
+def test_sorted_and_brute_queries_match_jax_kernels(seed, valid_p):
+    keys, values, valid, queries, w = _flat_inputs(seed, valid_p)
+    j = [jnp.asarray(a) for a in (keys, values, valid, queries, w)]
+    t = [_t(a) for a in (keys, values, valid, queries, w)]
+    ref_sorted = np.asarray(JP.box_query_moments_sorted(
+        *j, q_tile=16, n_tile=256, interpret=True))
+    ref_brute = np.asarray(JP.box_query_moments_pallas(
+        *j, q_tile=16, n_tile=256, interpret=True))
+    got_sorted = K.box_query_moments_sorted(*t).numpy()
+    got_brute = K.box_query_moments_brute(*t).numpy()
+    for got, ref in ((got_sorted, ref_sorted), (got_brute, ref_brute),
+                     (got_sorted, ref_brute)):
+        _assert_moments(got, ref)
+    if valid_p == 0.0:  # the all-invalid store matches nothing
+        assert (got_sorted == 0).all() and (got_brute == 0).all()
+    else:
+        assert ref_sorted[:, 0].sum() > 0
+
+
+@pytest.mark.parametrize("store", ["grouped106", "dense_sentinel499"])
+def test_grouped_query_matches_jax_kernel(store):
+    keys, values, valid, qg, w = (_grouped_inputs() if store == "grouped106"
+                                  else _dense_sentinel_inputs())
+    n_tile = 256 if store == "grouped106" else 64
+    ref = np.asarray(JP.box_query_moments_grouped(
+        *(jnp.asarray(a) for a in (keys, values, valid, qg, w)),
+        q_tile=16, n_tile=n_tile, interpret=True))
+    got = K.box_query_moments_grouped(*(_t(a) for a in (keys, values, valid,
+                                                        qg, w))).numpy()
+    _assert_moments(got, ref)
+    assert ref[1:, :, 0].sum() > 0, "needs matches in action groups >= 1"
+    brute = S._raw_moments(_t(keys), _t(values), _t(valid),
+                           _t(qg.reshape(-1, qg.shape[-1])), _t(w))
+    _assert_moments(got, brute.numpy().reshape(got.shape))
+
+
+def _assert_prune_keeps(ops, min_pairs):
+    """Every contained (query, valid row) pair of the band-ordered
+    operands lies in a (query tile, sub-slice) pair the prune keeps."""
+    mask = (ops.valid != 0)[None, :].expand(ops.q_t.shape[1], -1).clone()
+    for dd in range(ops.q_t.shape[0]):
+        mask &= (ops.q_t[dd][:, None] - ops.keys_t[dd][None, :]).abs() \
+            <= ops.w[dd]
+    q_idx, r_idx = torch.nonzero(mask, as_tuple=True)
+    assert q_idx.numel() >= min_pairs
+    keep = K.sorted_prune_keep(ops)
+    assert keep.shape == (-(-ops.q_t.shape[1] // K._SQT),
+                          ops.keys_t.shape[1] // K._SSUB_N)
+    assert keep[q_idx // K._SQT, r_idx // K._SSUB_N].all()
+    # and the tile extrema bound their queries' band keys
+    return keep
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sorted_prune_keeps_every_contained_pair(seed):
+    rng = np.random.default_rng(seed)
+    n, q, d = 6000, 700, 21
+    centers = rng.normal(0, 1, (24, d)) * np.r_[3.0, 40.0, [3.0] * 19]
+    keys = (centers[rng.integers(0, 24, n)]
+            + rng.normal(0, 1.5, (n, d))).astype(np.float32)
+    keys[:, -1] = rng.integers(0, 11, n)
+    values = rng.normal(0, 1, n).astype(np.float32)
+    valid = rng.random(n) < 0.9
+    w = np.asarray(DRIVING_HALF_WIDTHS, np.float32) * 1.5
+    w[-1] = 0.1
+    t = [_t(a) for a in (keys, values, valid)]
+    # flat: the data-chosen band dim
+    queries = (centers[rng.integers(0, 24, q)]
+               + rng.normal(0, 1.5, (q, d))).astype(np.float32)
+    queries[:, -1] = rng.integers(0, 11, q)
+    ops, _ = K.sorted_query_operands(*t, _t(queries), _t(w))
+    keep = _assert_prune_keeps(ops, 50)
+    assert 0 < keep.float().mean() < 0.6  # the prune does real work
+    # grouped: the composite (action, ego y) band key, all envs alike in
+    # half the queries (the trainer's zero-jitter start)
+    obs = queries[:, :-1].copy()
+    obs[: q // 2] = obs[0]
+    ops, _ = K.grouped_query_operands(*t, _t(_group(obs, 11)), _t(w))
+    keep = _assert_prune_keeps(ops, 50)
+    assert 0 < keep.float().mean() < 0.6
+
+
+def test_grouped_prune_keeps_pairs_on_dense_sentinel_store():
+    keys, values, valid, qg, w = _dense_sentinel_inputs(seed=3, waves=16)
+    ops, _ = K.grouped_query_operands(*(_t(a) for a in (keys, values, valid,
+                                                        qg, w)))
+    _assert_prune_keeps(ops, 20)
+    # the sentinel rows are valid, yet stay out of the composite span
+    assert bool((_t(keys)[:, 0] > 1e8).any())
+
+
+# ---------------------------------------------------------------------------
+# Store inserts, queries and the train gate against the JAX package
+# ---------------------------------------------------------------------------
+
+
+def _assert_store_equal(got, ref):
+    for name in ("keys", "actions", "values", "size", "head"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)), name)
+
+
+def _j_store(store):
+    return JS.ConfidenceStore(*(jnp.asarray(x.numpy()) for x in store))
+
+
+@pytest.mark.parametrize("policy", ["ring", "reject"])
+@pytest.mark.parametrize("cap,sizes", [(4, (1, 1, 1, 1, 1, 1, 1)),  # :137
+                                       (4, (2, 5)),                 # :153
+                                       (4, (10,)),                  # :182 lap
+                                       (8, (3,)),                   # :320
+                                       (64, (20, 30, 25, 70, 5))])
+def test_store_insert_matches_jax(policy, cap, sizes):
+    rng = np.random.default_rng(cap + len(sizes))
+    d = 3
+    js, ts = JS.store_init(cap, d), S.store_init(cap, d)
+    for i, m in enumerate(sizes):
+        keys = rng.normal(0, 1, (m, d)).astype(np.float32)
+        vals = (np.arange(m) + 100.0 * i).astype(np.float32)
+        mask = rng.random(m) < (0.6 if cap == 64 else 1.0)
+        if cap == 8:
+            mask = np.asarray([True, False, True])
+        args = (keys, keys[:, 0], vals, mask)
+        js = JS.store_insert(js, *(jnp.asarray(a) for a in args), policy=policy)
+        ts = S.store_insert(ts, *(_t(a) for a in args), policy=policy)
+        _assert_store_equal(ts, js)
+    with pytest.raises(ValueError):
+        S.store_insert(ts, _t(keys), _t(vals), _t(vals), _t(mask),
+                       policy="lru")
+
+
+def test_store_dense_block_matches_jax():
+    """tests/test_store_rls.py:230: six 8-row blocks through a 32-row
+    ring, invalid rows stamped with the sentinel key."""
+    rng = np.random.default_rng(9)
+    d, m, cap = 4, 8, 32
+    js, ts = JS.store_init(cap, d), S.store_init(cap, d)
+    for _ in range(6):
+        keys = rng.normal(0, 2, (m, d)).astype(np.float32)
+        keys[:, -1] = rng.integers(0, 3, m)
+        vals = rng.normal(0, 1, m).astype(np.float32)
+        mask = rng.random(m) < 0.7
+        args = (keys, keys[:, -1], vals, mask)
+        js = JS.store_insert_dense_block(js, *(jnp.asarray(a) for a in args))
+        ts = S.store_insert_dense_block(ts, *(_t(a) for a in args))
+        _assert_store_equal(ts, js)
+    assert (ts.keys == S.SENTINEL_KEY).any()
+    with pytest.raises(ValueError):
+        S.store_insert_dense_block(S.store_init(30, d), _t(keys), _t(vals),
+                                   _t(vals), _t(mask))
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_box_query_stats_matches_jax(use_kernel):
+    """tests/test_store_rls.py:40: 300 rows in a 512-row store."""
+    rng = np.random.default_rng(0)
+    d, n = 5, 300
+    keys = rng.normal(0, 5, (n, d))
+    keys[:, -1] = rng.integers(0, 8, n)
+    values = rng.normal(0, 1, n)
+    args = (keys.astype(np.float32), keys[:, -1].astype(np.float32),
+            values.astype(np.float32), np.ones(n, bool))
+    js = JS.store_insert(JS.store_init(512, d),
+                         *(jnp.asarray(a) for a in args))
+    ts = S.store_insert(S.store_init(512, d), *(_t(a) for a in args))
+    w = np.array([1.0, 2.0, 0.5, 3.0, 0.1], np.float32)
+    queries = rng.normal(0, 5, (64, d)).astype(np.float32)
+    queries[:, -1] = rng.integers(0, 8, 64)
+    ref = JS.box_query_stats(js, jnp.asarray(queries), jnp.asarray(w),
+                             use_pallas=False)
+    got = S.box_query_stats(ts, _t(queries), _t(w), use_kernel=use_kernel)
+    np.testing.assert_array_equal(got.count.numpy(), np.asarray(ref.count))
+    assert int(got.count.sum()) > 0
+    for name in ("mean", "var", "sigma"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+    # and the all-action form
+    obs = queries[:8, :-1]
+    ja = JR.all_action_stats(js, jnp.asarray(obs), jnp.asarray(w), 8,
+                             use_pallas=False)
+    ta = R.all_action_stats(ts, _t(obs), _t(w), 8, use_kernel=use_kernel)
+    np.testing.assert_array_equal(ta.count.numpy(), np.asarray(ja.count))
+
+
+def test_act_train_matches_jax():
+    """The train gate with JAX's own explore draw fed in, on stats with
+    every branch (under-explored rule, good rule, poor rule)."""
+    rng = np.random.default_rng(12)
+    b = 256
+    count, mean, var, sigma = _random_action_stats(rng, b, 1)
+    mean[:, 0] = rng.uniform(-1.2, 0.2, b)
+    rl = rng.integers(0, 11, b).astype(np.int32)
+    jcfg = JStoreConfig()
+    key = jax.random.PRNGKey(4)
+    jstats = JR.ActionStats(*(jnp.asarray(a) for a in (count.astype(np.int32),
+                                                       mean, var, sigma)))
+    ref = np.asarray(JR.act_train(jstats, jnp.asarray(rl), key, jcfg))
+    explore = jax.random.uniform(key, (b,), minval=jcfg.explore_low,
+                                 maxval=jcfg.explore_high)
+    got = R.act_train(R.ActionStats(_t(count.astype(np.int32)), _t(mean),
+                                    _t(var), _t(sigma)),
+                      _t(rl), _t(explore), StoreConfig())
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (ref == 0).sum() > 20 and (ref > 0).sum() > 20
+
+
+# ---------------------------------------------------------------------------
+# Trajectory buffers: readable and lane-major, in every value mode
+# ---------------------------------------------------------------------------
+
+MODES = {"reference": dict(),
+         "nstep": dict(value_mode="nstep"),
+         "episode": dict(value_mode="episode", gamma=1.0, n_step_window=20)}
+DONE_STEPS = {"reference": (24, 42, 47), "nstep": (17, 33),
+              "episode": (14, 20, 38, 49)}
+
+
+def _assert_records(got, ref):
+    """Keys, actions and valid flags bit-equal; values within 1e-6 of
+    the unit reward scale (the JAX package sums the discounted window as
+    a matrix product, the port elementwise: another summation order)."""
+    for name in ("keys", "actions", "valid"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)), name)
+    np.testing.assert_allclose(got.values.numpy(), np.asarray(ref.values),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_traj_buffer_push_and_insert_match_jax(mode):
+    """tests/test_store_rls.py:407, :438, :757 and :484: one env's
+    window over 50 steps, its records inserted into a store."""
+    rng = np.random.default_rng(2)
+    jcfg, cfg = JStoreConfig(**MODES[mode]), StoreConfig(**MODES[mode])
+    obs_dim = 4
+    jb = JR.traj_buffer_init(jcfg.n_step_window, obs_dim)
+    tb = R.traj_buffer_init(cfg.n_step_window, obs_dim)
+    js, ts = JS.store_init(256, obs_dim + 1), S.store_init(256, obs_dim + 1)
+    n_rec = 0
+    for step in range(50):
+        obs = rng.normal(0, 1, obs_dim).astype(np.float32)
+        action = np.float32(rng.integers(0, 8))
+        rew = np.float32(rng.normal(0, 1))
+        done = step in DONE_STEPS[mode]
+        jb, jrec = JR.traj_buffer_push(
+            jb, jnp.asarray(obs), jnp.asarray(action), jnp.asarray(rew),
+            jnp.asarray(done), jcfg)
+        tb, trec = R.traj_buffer_push(tb, _t(obs), _t(action), _t(rew),
+                                      _t(done), cfg)
+        _assert_records(trec, jrec)
+        np.testing.assert_array_equal(tb.length.numpy(), np.asarray(jb.length))
+        js = JR.insert_records(js, jrec)
+        ts = R.insert_records(ts, trec)
+        n_rec += int(trec.valid.sum())
+    for name in ("keys", "actions", "size", "head"):
+        np.testing.assert_array_equal(getattr(ts, name).numpy(),
+                                      np.asarray(getattr(js, name)), name)
+    np.testing.assert_allclose(ts.values.numpy(), np.asarray(js.values),
+                               rtol=1e-6, atol=1e-6)
+    assert int(ts.size) == min(n_rec, 256) and n_rec > 0
+    with pytest.raises(ValueError):
+        R.traj_buffer_push(R.traj_buffer_init(3, obs_dim), _t(obs),
+                           _t(action), _t(rew), _t(done), cfg)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_traj_push_lane_matches_jax(mode):
+    """tests/test_store_rls.py:622 and :797: the lane-major push of six
+    envs over 30 steps, random dones (episode mode: never past the
+    window)."""
+    rng = np.random.default_rng(17)
+    kw = dict(MODES[mode], n_step_window=5 if mode != "episode" else 12,
+              gamma=0.9 if mode != "episode" else 1.0)
+    jcfg, cfg = JStoreConfig(**kw), StoreConfig(**kw)
+    w, d, b = cfg.n_step_window, 4, 6
+    jbuf = (jnp.zeros((w, d, b), jnp.float32), jnp.zeros((w, b), jnp.float32),
+            jnp.zeros((w, b), jnp.float32), jnp.zeros((b,), jnp.int32))
+    tbuf = tuple(_t(x) for x in jbuf)
+    since = np.zeros(b, int)
+    for step in range(30):
+        obs = rng.normal(0, 1, (d, b)).astype(np.float32)
+        act = rng.integers(0, 5, b).astype(np.float32)
+        rew = rng.normal(0, 1, b).astype(np.float32)
+        since += 1
+        done = (rng.random(b) < 0.15) | (since >= w - 1)
+        since[done] = 0
+        args = (obs, act, rew, done)
+        jbuf, jrec = JR.traj_push_lane(*jbuf, *(jnp.asarray(a) for a in args),
+                                       jcfg)
+        tbuf, trec = R.traj_push_lane(*tbuf, *(_t(a) for a in args), cfg)
+        _assert_records(trec, jrec)
+        for g, r in zip(tbuf, jbuf):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert int(trec.valid.sum()) >= 0 and tbuf[3].dtype == torch.int32
