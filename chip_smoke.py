@@ -36,6 +36,14 @@ for them, and checks them:
                 observations; the gated driver runs 65,536 envs x 50 ticks
                 against it
 
+Each rate comes from a run without probes; a replay of the same run then
+times each launch and reports its plan (kept and window sub-slices per
+query tile, chunks, scratch bytes, the persistent grid) and, for
+peraction_moments, how many (query, kept 128-row piece) pairs settle
+whole.  The 4,096-query checks repeat the launch (bit-equal outputs) and
+report the share of (32-query warp, examined row) pairs in which no
+query matches.
+
 Prints one line per phase, a JSON line of kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or without the package beside it.
@@ -176,8 +184,9 @@ def band_stores(rng):
 @contextlib.contextmanager
 def timed_launches(module, name: str, record: list, probe):
     """Wrap ``module.<name>`` (a kernel's launch function) with CUDA
-    events for one run; ``probe(args, out)`` returns the launch's work
-    (kept pairs, matches, bytes, ops).  Launches still count."""
+    events for one run; ``probe(args, out)`` returns a function that
+    gives the launch's work (kept pairs, matches, bytes, ops, plan) once
+    the run is over.  Launches still count."""
     orig = getattr(module, name)
 
     def timed(*args):
@@ -186,7 +195,7 @@ def timed_launches(module, name: str, record: list, probe):
         start.record()
         out = orig(*args)
         end.record()
-        record.append((start, end) + probe(args, out))
+        record.append((start, end, probe(args, out)))
         return out
 
     setattr(module, name, timed)
@@ -198,39 +207,87 @@ def timed_launches(module, name: str, record: list, probe):
 
 def summarize(record: list) -> dict:
     """Per-launch times and work of a timed run; the bound is that of the
-    mean launch's work (bytes and operations of these inputs)."""
+    mean launch's work (bytes and operations of these inputs).  Also the
+    plan: kept sub-slices per query tile (max and mean), the window's
+    sub-slices per tile, the chunk count, the scratch bytes and the
+    persistent grid of the main pass."""
     torch.cuda.synchronize()
-    ms = [s.elapsed_time(e) for s, e, *_ in record]
+    ms = [s.elapsed_time(e) for s, e, _ in record]
+    record = [(s, e) + work() for s, e, work in record]
     pairs = [float(r[2]) for r in record]
     matches = [float(r[3]) for r in record]
-    bound, by = bound_ms(float(np.mean([float(r[4]) for r in record])),
-                         float(np.mean([float(r[5]) for r in record])))
+    n_ops = float(np.mean([float(r[5]) for r in record]))
+    bound, by = bound_ms(float(np.mean([float(r[4]) for r in record])), n_ops)
+    plans = [{k: float(v) for k, v in r[6].items()} for r in record]
+    chunks = [p["chunks"] for p in plans]
     return dict(kernel_ms_mean=float(np.mean(ms)), kernel_ms_first=ms[0],
                 kernel_ms_last=ms[-1], kernel_ms_sum=float(np.sum(ms)),
                 pairs_after_prune_mean=float(np.mean(pairs)),
                 pairs_first=pairs[0], pairs_last=pairs[-1],
                 matches_mean=float(np.mean(matches)),
-                bound_ms_mean=bound, bound_by=by)
+                ops_mean=n_ops, bound_ms_mean=bound, bound_by=by,
+                kept_per_tile_max=max(p["kept_max"] for p in plans),
+                kept_per_tile_mean=float(np.mean([p["kept_mean"]
+                                                  for p in plans])),
+                window_per_tile_mean=float(np.mean([p["window_mean"]
+                                                    for p in plans])),
+                chunks_mean=float(np.mean(chunks)), chunks_max=max(chunks),
+                chunk_subslices=plans[0]["chunk"],
+                scratch_bytes=max(p["scratch_bytes"] for p in plans),
+                grid=plans[0]["grid"])
 
 
-def peraction_probe(store_kernels):
+def plan_stats(keep, plan, chunk_bytes: int, grid: int) -> dict:
+    """Device scalars describing one launch's plan."""
+    kept = keep.sum(1).float()
+    return dict(kept_max=kept.max(), kept_mean=kept.mean(),
+                window_mean=(plan.s_hi - plan.s_lo).float().mean(),
+                chunks=plan.off[-1], chunk=plan.chunk,
+                scratch_bytes=plan.max_chunks * chunk_bytes, grid=grid)
+
+
+def peraction_probe(store_kernels, _cuda, settled: list):
+    """Keeps each launch's arguments; its work is counted after the run,
+    and each launch's whole-piece counts (:func:`piece_settle`) are
+    appended to ``settled``."""
     def probe(args, out):
-        prep, queries, qorder, qext = args
-        keep = store_kernels.prune_keep(prep, qext)
-        tile_q = torch.full((keep.shape[0],), float(store_kernels._QT),
-                            device=keep.device)
-        tile_q[-1] = queries.shape[0] - store_kernels._QT * (keep.shape[0] - 1)
-        pairs = (keep.sum(1) * tile_q).sum() * prep.sub_n
-        matches = out[..., 0].sum()
-        n_pad = prep.keys_t.shape[1]
-        b = queries.shape[0]
-        n_bytes = (n_pad * 24 * 4 + b * (20 * 4 + 8 + 33 * 4)
-                   + 4 * (prep.kb.numel() + prep.kb2.numel() + prep.kbt.numel()))
-        return pairs, matches, n_bytes, 40.0 * pairs + 3.0 * matches
+        grid = _cuda.GRID["peraction_moments"]
+
+        def work():
+            prep, queries, qorder, qext = args
+            keep = store_kernels.prune_keep(prep, qext)
+            tile_q = torch.full((keep.shape[0],), float(store_kernels._QT),
+                                device=keep.device)
+            tile_q[-1] = queries.shape[0] - store_kernels._QT * (keep.shape[0] - 1)
+            pairs = (keep.sum(1) * tile_q).sum() * prep.sub_n
+            b = queries.shape[0]
+            n_feat = 3 * prep.num_actions
+            # inputs read once: records, piece boxes and sums, queries
+            # (+ order), extrema; output
+            n_bytes = (4 * (prep.rows.numel() + prep.piece_box.numel()
+                            + prep.piece_mom.numel())
+                       + b * (20 * 4 + 8 + n_feat * 4)
+                       + 4 * (prep.kb.numel() + prep.kb2.numel()
+                              + prep.kbt.numel() + qext.numel()))
+            st = piece_settle(prep, queries, qorder, keep)
+            settled.append(st)
+            # the box test of every (query, kept piece) pair, 4 operations
+            # a dim; the piece's sums for each held pair; 2 a dim for each
+            # live row of the pieces a query walks (the adds of its
+            # matches there are left out: a lower bound)
+            n_ops = (80.0 * st["pairs"] + n_feat * st["held"]
+                     + 40.0 * st["walk_rows"])
+            plan = store_kernels.peraction_plan(prep, qext)
+            return (pairs, out[..., 0].sum(), n_bytes, n_ops,
+                    plan_stats(keep, plan, 4 * n_feat * store_kernels._QT,
+                               grid))
+        return work
     return probe
 
 
-def sorted_probe(store_kernels):
+def sorted_probe(store_kernels, _cuda):
+    """Counts each launch's work at once (its operands are rebuilt every
+    step, too large to keep for a 300-step run)."""
     def probe(args, out):
         (ops,) = args
         d, q = ops.q_t.shape
@@ -240,10 +297,86 @@ def sorted_probe(store_kernels):
         tile_q[-1] = q - store_kernels._SQT * (keep.shape[0] - 1)
         pairs = (keep.sum(1) * tile_q).sum() * store_kernels._SSUB_N
         matches = out[:, 0].sum()
-        n_bytes = 4 * ((d + 2) * ops.keys_t.shape[1] + (d + 3) * q
-                       + ops.kb.numel() + ops.qb.numel() + d + 1)
-        return pairs, matches, n_bytes, 2.0 * d * pairs + 3.0 * matches
+        # inputs read once: records, queries, extrema, w; output
+        n_bytes = 4 * (ops.rows.numel() + (d + 3) * q + ops.kb.numel()
+                       + ops.qb.numel() + 2 * d + 1)
+        plan = store_kernels.sorted_plan(ops)
+        work = (pairs, matches, n_bytes, 2.0 * d * pairs + 3.0 * matches,
+                plan_stats(keep, plan, 8 * 3 * store_kernels._SQT,
+                           _cuda.GRID["sorted_moments"]))
+        return lambda: work
     return probe
+
+
+def warp_empty_share(mask: torch.Tensor, keep: torch.Tensor,
+                     live_rows: torch.Tensor) -> float:
+    """Share of the (32-query warp, live row) pairs a kernel examines
+    (rows of the sub-slices its tile keeps) in which no query of the warp
+    lies in the row's box: what warp-level skipping, or a prefilter, can
+    save at most.  ``mask`` [Q, n_pad] is the containment in tile order."""
+    q = mask.shape[0]
+    warp_any = mask.reshape(q // 32, 32, -1).any(1)
+    per_warp = keep.repeat_interleave(4, 0)[:q // 32]
+    examined = per_warp.repeat_interleave(256, 1) & live_rows[None]
+    return float((examined & ~warp_any).sum()) / max(float(examined.sum()), 1.0)
+
+
+def piece_settle(prep, queries, qorder, keep, batch: int = 1 << 14) -> dict:
+    """Over the (live query, kept 128-row piece) pairs of one launch:
+    ``pairs``, how many a query settles whole from the piece's live-row
+    box (``held``: it takes the piece's sums; ``out``: out of reach, it
+    takes nothing), and ``walk_rows``, the live rows of the pieces it
+    must walk row by row.  Device scalars."""
+    perm = prep.perm.long()
+    q = queries[qorder][:, perm]
+    b, w = q.shape[0], prep.w_col[perm]
+    live_rows = (prep.row_act >= 0).reshape(-1, 128).sum(1)
+    tiles, subs = torch.nonzero(keep, as_tuple=True)
+    tiles = tiles.repeat_interleave(2)
+    pcs = (2 * subs[:, None] + torch.arange(2, device=subs.device)).reshape(-1)
+    lane = torch.arange(128, device=q.device)
+    st = {k: torch.zeros((), dtype=torch.int64, device=q.device)
+          for k in ("pairs", "held", "out", "walk_rows")}
+    for i in range(0, pcs.shape[0], batch):
+        pc = pcs[i:i + batch]
+        qi = tiles[i:i + batch, None] * 128 + lane                   # [n, 128]
+        ok = qi < b
+        qq = q[qi.clamp(max=b - 1)]                                  # [n, 128, 20]
+        box = prep.piece_box[pc][:, None]
+        a, c = qq - box[..., :20], qq - box[..., 20:]
+        held = ((a.abs() <= w) & (c.abs() <= w)).all(-1) & ok
+        out = ((c > w) | (a < -w)).any(-1) & ok & ~held
+        walk = ok & ~held & ~out
+        st["pairs"] += ok.sum()
+        st["held"] += held.sum()
+        st["out"] += out.sum()
+        st["walk_rows"] += (walk.sum(1) * live_rows[pc]).sum()
+    return st
+
+
+def settle_shares(st: dict) -> dict:
+    total = max(float(st["pairs"]), 1.0)
+    return dict(piece_held_share=float(st["held"]) / total,
+                piece_out_of_reach_share=float(st["out"]) / total)
+
+
+def sorted_mask(ops) -> torch.Tensor:
+    """[Q, n_pad] bool containment of the sorted operands (tile order)."""
+    mask = (ops.valid != 0)[None, :].expand(ops.q_t.shape[1], -1).clone()
+    for d in range(ops.q_t.shape[0]):
+        mask &= torch.abs(ops.q_t[d][:, None] - ops.keys_t[d][None, :]) \
+            <= ops.w[d]
+    return mask
+
+
+def peraction_mask(prep, queries_sorted) -> torch.Tensor:
+    """[B, n_pad] bool containment of sorted queries in live rows."""
+    mask = (prep.row_act >= 0)[None, :].expand(queries_sorted.shape[0],
+                                               -1).clone()
+    for d in range(prep.keys_t.shape[0]):
+        mask &= torch.abs(queries_sorted[:, d:d + 1] - prep.keys_t[d][None, :]) \
+            <= prep.w_col[d]
+    return mask
 
 
 def brute_work(n_rows: int, n_q: int, d: int, matches: float):
@@ -400,12 +533,20 @@ def main() -> int:
     ref = sk.peraction_moments_plain(prep, q_sub)
     err = compare(got, ref, "main_store")
     note_err("peraction_moments", err)
+    if not torch.equal(sk.query_peraction_prepared(prep, q_sub), got):
+        fail("main store: two peraction_moments launches differ")
     pa_plain_ms = cuda_ms(lambda: sk.peraction_moments_plain(prep, q_sub))
     pa_sub_ms = cuda_ms(lambda: sk.query_peraction_prepared(prep, q_sub))
+    qorder_sub, qext_sub = sk.query_operands(prep, q_sub)
+    keep_sub = sk.prune_keep(prep, qext_sub)
+    pa_warp_empty = warp_empty_share(
+        peraction_mask(prep, q_sub[qorder_sub]), keep_sub, prep.row_act >= 0)
+    pa_settle = settle_shares(piece_settle(prep, q_sub, qorder_sub, keep_sub))
     emit("kernel_vs_plain", kernel="peraction_moments", store="main_path",
          rows=n_rows, queries=4096, max_abs_err=err,
          matches=int(ref[..., 0].sum()), kernel_ms=pa_sub_ms,
-         plain_ms=pa_plain_ms, prepare_ms=prepare_ms)
+         plain_ms=pa_plain_ms, prepare_ms=prepare_ms,
+         warp_row_empty_share=pa_warp_empty, **pa_settle)
 
     def gated_path(label, keys, vals, valid, seed):
         """The gated driver at 65,536 envs x 50 ticks, counted, then a
@@ -418,6 +559,7 @@ def main() -> int:
                        generator=torch.Generator(device=dev).manual_seed(seed))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         launches = dict(_cuda.LAUNCHES)
         reward, done, passed, collided, executed, gated = out
         gate_share = float((gated > 0).float().mean())
@@ -425,9 +567,9 @@ def main() -> int:
             fail(f"{label}: kernel launches {launches} != {main_t} ticks")
         if reward.shape != (main_t, main_b) or not torch.isfinite(reward).all():
             fail(f"{label}: rewards not finite or misshapen")
-        record = []
+        record, settled = [], []
         with timed_launches(sk, "launch_peraction", record,
-                            peraction_probe(sk)):
+                            peraction_probe(sk, _cuda, settled)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run_g(carry0, main_t, keys, vals, valid,
@@ -435,6 +577,12 @@ def main() -> int:
             torch.cuda.synchronize()
             replay_s = time.perf_counter() - t0
         summ = summarize(record)
+        for when, st in (("first", settled[0]), ("last", settled[-1])):
+            summ.update({f"{k}_{when}_tick": v
+                         for k, v in settle_shares(st).items()})
+        summ["piece_held_share_mean"] = settle_shares(
+            {k: sum(st[k] for st in settled) for k in settled[0]}
+        )["piece_held_share"]
         emit(label, envs=main_b, ticks=main_t, store_rows=int(valid.sum()),
              env_steps_per_s=main_b * main_t / run_s, seconds=run_s,
              replay_env_steps_per_s=main_b * main_t / replay_s,
@@ -442,7 +590,7 @@ def main() -> int:
              launches=launches, gate_share=gate_share,
              done_share=float(done.float().mean()),
              pairs_total=float(main_b) * float(keys.shape[0]), **summ,
-             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, gpu=gpu)
+             peak_mem_gib=peak_gib, gpu=gpu)
         return launches, summ, gate_share
 
     # --- gated main path on the rule-filled store
@@ -505,7 +653,7 @@ def main() -> int:
         fail("train path: the store did not grow")
     learner.load_state_dict(snap_learner)
     record = []
-    with timed_launches(sk, "launch_sorted", record, sorted_probe(sk)):
+    with timed_launches(sk, "launch_sorted", record, sorted_probe(sk, _cuda)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run_timed(snap, torch.Generator(device=dev).manual_seed(8))
@@ -550,7 +698,9 @@ def main() -> int:
     emit("kernel_vs_plain", kernel="sorted_moments", store="trainer_store",
          rows=int(valid_tr.sum()), queries=4096, max_abs_err=err,
          matches=int(ref[:, 0].sum()), kernel_ms=so_sub_ms,
-         plain_ms=so_plain_ms, kept_subslice_share=float(keep.float().mean()))
+         plain_ms=so_plain_ms, kept_subslice_share=float(keep.float().mean()),
+         warp_row_empty_share=warp_empty_share(sorted_mask(ops), keep,
+                                               ops.valid != 0))
     got = sk.box_query_moments_brute(k_tr, v_tr, valid_tr, q_tr, hw)
     torch.cuda.synchronize()
     ref = sk.brute_moments_plain(k_tr, v_tr, valid_tr, q_tr, hw)
@@ -620,23 +770,32 @@ def main() -> int:
 
     # --- the gated driver on a trainer-built store (bench.py:169-210)
     fill_tb, fill_steps, fill_cap = 16384, 300, 1 << 18
-    init_f, _, _, factory_f = make_trainer_fast(
+    init_f, _, learner_f, factory_f = make_trainer_fast(
         dcfg, batch_per_device=fill_tb, store_capacity_per_device=fill_cap,
         replay_capacity_per_device=1 << 14, backfill_budget_per_step=4096,
         use_kernel=True)
+    run_fill = factory_f(fill_steps)
+    fill_learner = learner_f.state_dict()
     _cuda.LAUNCHES.clear()
-    fill_record = []
-    with timed_launches(sk, "launch_sorted", fill_record, sorted_probe(sk)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st_f, ms_f = factory_f(fill_steps)(
-            init_f(SEED + 7), torch.Generator(device=dev).manual_seed(SEED + 8))
-        torch.cuda.synchronize()
-        fill_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_f, ms_f = run_fill(init_f(SEED + 7),
+                          torch.Generator(device=dev).manual_seed(SEED + 8))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
     fill_launches = dict(_cuda.LAUNCHES)
-    fill_summ = summarize(fill_record)
     if fill_launches != {"sorted_moments": fill_steps}:
         fail(f"trainer fill: launches {fill_launches} != {fill_steps}")
+    learner_f.load_state_dict(fill_learner)
+    fill_record = []
+    with timed_launches(sk, "launch_sorted", fill_record, sorted_probe(sk, _cuda)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_fill(init_f(SEED + 7),
+                 torch.Generator(device=dev).manual_seed(SEED + 8))
+        torch.cuda.synchronize()
+        fill_replay_s = time.perf_counter() - t0
+    fill_summ = summarize(fill_record)
     f_rows = int(st_f.store_size[0])
     f_keys, f_vals = st_f.store_keys[0], st_f.store_values[0]
     f_valid = torch.arange(fill_cap, device=dev) < f_rows
@@ -647,7 +806,9 @@ def main() -> int:
          dropped_records=int(ms_f.dropped_records.sum()),
          loss_last=float(ms_f.loss[-1]),
          rule_fraction_last=float(ms_f.rule_fraction[-1]),
-         kernel_share=fill_summ["kernel_ms_sum"] / (fill_s * 1e3),
+         replay_env_steps_per_s=fill_tb * fill_steps / fill_replay_s,
+         kernel_share_of_replay=fill_summ["kernel_ms_sum"]
+         / (fill_replay_s * 1e3),
          **{"sorted_" + k: v for k, v in fill_summ.items()})
     if not torch.isfinite(ms_f.loss).all() or f_rows <= 0:
         fail("trainer fill: loss not finite or empty store")
@@ -661,11 +822,17 @@ def main() -> int:
     ref = sk.sorted_moments_plain(ops)
     err = compare(got, ref, "trainer_fill_store_sorted")
     note_err("sorted_moments", err)
+    if not torch.equal(sk.sorted_moments(ops), got):
+        fail("trainer fill: two sorted_moments launches differ")
+    fill_q_ms = cuda_ms(lambda: sk.sorted_moments(ops))
     emit("kernel_vs_plain", kernel="sorted_moments", store="trainer_fill",
          rows=f_rows, queries=4096, max_abs_err=err,
          matches=int(ref[:, 0].sum()),
-         max_matches_per_query=int(ref[:, 0].max()))
-    del st_f, init_f, factory_f, ops, got, ref
+         max_matches_per_query=int(ref[:, 0].max()), kernel_ms=fill_q_ms,
+         deterministic=True,
+         warp_row_empty_share=warp_empty_share(
+             sorted_mask(ops), sk.sorted_prune_keep(ops), ops.valid != 0))
+    del st_f, init_f, factory_f, run_fill, ops, got, ref
     torch.cuda.empty_cache()
     ts_launches, ts_summ, ts_gate = gated_path(
         "gated_on_trainer_store", f_keys, f_vals, f_valid, SEED + 9)

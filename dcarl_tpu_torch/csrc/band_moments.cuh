@@ -1,123 +1,233 @@
 // Shared body of sorted_moments.cu and box_moments.cu: [Q, 3] box-query
-// moments, one query per thread, rows staged in shared memory.
+// moments over a per-tile window of row sub-slices, split over the card.
 //
 // For every query q:
 //     out[q, :] = sum over rows r with valid_r != 0 and |q_d - k_rd| <= w_d
 //                 for all d of (1, v_r, v_r^2)
 // with the exact f32 per-dimension test of the JAX kernels.
 //
-// Layout.  A block owns QT queries, one per thread, its D coordinates and
-// half-widths in registers.  It walks the rows in SUB_N-row sub-slices:
-// the block stages a sub-slice's keys, values and valid flags in shared
-// memory with coalesced loads, then every thread reads the same row at
-// the same time (a broadcast), so the per-pair work is register
-// arithmetic.  With kPrune, a sub-slice whose band extrema
-// [kb_lo - w0, kb_hi + w0] cannot meet the block's query band
-// [q_lo, q_hi] is skipped: the same f32 test as
-// ops/store_kernels.py::sorted_prune_keep.
+// Layout.  Rows arrive as one record of R = round_up(D + 2, 4) floats
+// each: the D keys in the order `perm` gives (most selective first), then
+// v, then the valid flag.  The wrapper's plan gives each QT-query tile a
+// window [s_lo, s_hi) of SUB_N-row sub-slices, cut into chunks of C
+// (chunk_ring.cuh); the sorted kernel's window is exactly the sub-slices
+// its band prune keeps, the brute kernel's is every sub-slice.  A fixed
+// grid of persistent blocks walks the chunks.  For each, a block loads its
+// tile's queries (QPT per thread, coordinates and half-widths in
+// registers, in record order), streams the chunk's rows through the
+// bulk-copy ring in PIECE_N-row pieces, and tests each row against its
+// queries: keys read as float4 broadcasts from shared memory, in two
+// independent chains of four-dim groups.  After the first four dims a
+// warp skips the row when no lane still contains it (__any_sync).  Two
+// queries per thread and 128-row pieces were the fastest of the four
+// combinations (one or two queries, 128- or 256-row pieces) measured on
+// the trainer fill.
 //
-// Sums.  No atomics and no cross-block reduction: (count, sum, sum of
-// squares) live in registers and are summed in row order, so the output
-// is deterministic.  The count is f32 (exact to 2^24); the two sums are
-// f64: on a lockstep trainer's store one query matches tens of thousands
-// of near-identical rows, where a sequential f32 sum misses the oracle's
-// rtol 1e-4 (measured on the H100).
+// Key width.  D4 = round_up(D, 4) is a template parameter (4..32), so the
+// dims unroll into registers with no per-dim bounds test except in the
+// last group of four, where slots past D (which hold v and the flag, not
+// keys) are not tested.
+//
+// Sums.  Each chunk writes (count, sum v, sum v^2) of each query to its
+// own slot of `partial` in f64 (an f32 sum over tens of thousands of
+// near-identical matched rows misses the oracle's rtol 1e-4, measured on
+// the H100); moments_sum then adds a query's chunks in chunk order.  No
+// atomics: the output is the same bits on every run.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include "chunk_ring.cuh"
 
 namespace band_moments {
 
-constexpr int QT = 128;     // queries per block, one per thread
-constexpr int SUB_N = 256;  // rows per staged sub-slice
-constexpr int MAX_D = 32;   // widest key
+using namespace chunk_ring;
 
-// Dynamic shared memory of one block: D x SUB_N keys, values, flags
-// (at most (32 + 2) * 256 floats = 34 KB, within the static 48 KB).
-inline size_t smem_bytes(int D) {
-    return sizeof(float) * ((size_t)D * SUB_N + 2 * SUB_N);
+constexpr int MAX_D = 32;  // widest key
+constexpr int QPT = 2;  // queries per thread
+constexpr int NT = QT / QPT;  // threads per block
+constexpr int PIECE_N = 128;  // rows per ring buffer
+
+// Floats in a row record: D keys, v, valid, padded to a float4.
+__host__ __device__ inline int record_floats(int D) {
+    return (D + 2 + 3) / 4 * 4;
 }
 
-template <bool kPrune>
-__device__ __forceinline__ void moments_block(
-    const float* __restrict__ q_t,    // [D, Q]
-    const float* __restrict__ keys,   // [D, n_pad]
-    const float* __restrict__ vals,   // [n_pad]
-    const float* __restrict__ valid,  // [n_pad] 1 / 0
-    const float* __restrict__ kb,     // [2, n_pad / SUB_N] (kPrune only)
-    const float* __restrict__ qb,     // [2, gridDim.x] (kPrune only)
-    const float* __restrict__ w,      // [D]
-    const float* __restrict__ w0p,    // [1] (kPrune only)
-    int Q, int n_pad, int D,
-    float* __restrict__ out)          // [Q, 3]
+template <int D4>
+__global__ void __launch_bounds__(NT) moments_main(
+    const float* __restrict__ q_t,   // [D, Q] queries, tile order
+    const float* __restrict__ rows,  // [n_pad, R] records
+    const int* __restrict__ perm,    // [D] key dim of record slot d
+    const float* __restrict__ w,     // [D] half-widths
+    const int* __restrict__ s_lo,    // [n_qt] window start (sub-slices)
+    const int* __restrict__ s_hi,    // [n_qt] window end
+    const int* __restrict__ off,     // [n_qt + 1] chunk offsets
+    int Q, int D, int n_qt, int C,
+    double* __restrict__ partial)    // [chunks, 3, QT]
 {
-    extern __shared__ float smem[];
-    float* ks = smem;               // [D][SUB_N] staged keys
-    float* vs = ks + D * SUB_N;     // [SUB_N] staged values
-    float* ms = vs + SUB_N;         // [SUB_N] staged valid flags
-
+    extern __shared__ __align__(128) unsigned char smem[];
+    Ring<PIECE_N> ring;
+    ring.init(smem, record_floats(D));
+    const int R = ring.R;
     const int tid = threadIdx.x;
-    const int tile = blockIdx.x;
-    const int pos = tile * QT + tid;
-    const bool live = pos < Q;
 
-    // A dead thread's query is NaN: |NaN - k| <= w is false for every row.
-    float q[MAX_D], wr[MAX_D];
+    float wr[D4];
+    bool pad[D4];  // slot d >= D: not a key, never tested
 #pragma unroll
-    for (int d = 0; d < MAX_D; ++d) {
-        q[d] = (live && d < D) ? q_t[(size_t)d * Q + pos]
-                               : __int_as_float(0x7fc00000);
-        wr[d] = d < D ? w[d] : 0.f;
+    for (int d = 0; d < D4; ++d) {
+        pad[d] = d >= D;
+        wr[d] = pad[d] ? CUDART_INF_F : __ldg(w + __ldg(perm + d));
     }
 
-    const int n_sub = n_pad / SUB_N;
-    float w0 = 0.f, q_lo = 0.f, q_hi = 0.f;
-    if (kPrune) {
-        w0 = *w0p;
-        q_lo = qb[tile];
-        q_hi = qb[gridDim.x + tile];
-    }
-    float cnt = 0.f;
-    double sum = 0.0, sumsq = 0.0;
+    const int n_chunks = __ldg(off + n_qt);
+    for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+        const int t = chunk_tile(off, n_qt, c);
+        const int s0 = __ldg(s_lo + t) + (c - __ldg(off + t)) * C;
+        const int n = min(C, __ldg(s_hi + t) - s0);
 
-    for (int s = 0; s < n_sub; ++s) {
-        // band-overlap prune (uniform across the block)
-        if (kPrune && !(kb[s] - w0 <= q_hi && kb[n_sub + s] + w0 >= q_lo)) {
-            continue;
-        }
-        const int base = s * SUB_N;
-        __syncthreads();  // every thread is done with the last slice
-        for (int i = tid; i < D * SUB_N; i += QT) {
-            const int d = i / SUB_N, r = i - d * SUB_N;
-            ks[i] = keys[(size_t)d * n_pad + base + r];
-        }
-        for (int r = tid; r < SUB_N; r += QT) {
-            vs[r] = vals[base + r];
-            ms[r] = valid[base + r];
-        }
-        __syncthreads();
-
-        for (int r = 0; r < SUB_N; ++r) {
-            if (ms[r] == 0.f) continue;  // same row on every thread: uniform
-            bool ok = true;
+        // A dead query is NaN: |NaN - k| <= w is false for every row.
+        float q[QPT][D4];
 #pragma unroll
-            for (int d = 0; d < MAX_D; ++d) {
-                if (d < D) ok &= fabsf(q[d] - ks[d * SUB_N + r]) <= wr[d];
-            }
-            if (ok) {
-                const float v = vs[r];
-                cnt += 1.f;
-                sum += v;
-                sumsq += (double)v * v;
+        for (int i = 0; i < QPT; ++i) {
+            const int pos = t * QT + tid + i * NT;
+#pragma unroll
+            for (int d = 0; d < D4; ++d) {
+                q[i][d] = pad[d] ? 0.f
+                    : pos < Q ? __ldg(q_t + (size_t)__ldg(perm + d) * Q + pos)
+                              : CUDART_NAN_F;
             }
         }
+        float cnt[QPT];
+        double sum[QPT], sumsq[QPT];
+#pragma unroll
+        for (int i = 0; i < QPT; ++i) {
+            cnt[i] = 0.f;
+            sum[i] = 0.0;
+            sumsq[i] = 0.0;
+        }
+
+        constexpr int PIECES = SUB_N / PIECE_N;
+        ring.walk(rows, n * PIECES,
+                  [&](int j) { return s0 * SUB_N + j * PIECE_N; },
+                  [&](const float* buf, int) {
+            // query i lies in the row's box along dims 4g..4g+3
+            auto in_group = [&](int i, int g, const float4& k) {
+                const float kk[4] = {k.x, k.y, k.z, k.w};
+                bool o[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int d = 4 * g + e;
+                    const bool in = fabsf(q[i][d] - kk[e]) <= wr[d];
+                    o[e] = d < D4 - 4 ? in : (in | pad[d]);
+                }
+                return (o[0] & o[1]) & (o[2] & o[3]);
+            };
+            for (int r = 0; r < PIECE_N; ++r) {
+                const float* row = buf + r * R;
+                if (row[D + 1] == 0.f) continue;  // invalid row: uniform
+                const float4* k4 = reinterpret_cast<const float4*>(row);
+                float4 k[D4 / 4];  // every load issued before the vote
+#pragma unroll
+                for (int g = 0; g < D4 / 4; ++g) k[g] = k4[g];
+                bool ok[QPT];
+                bool any = false;
+#pragma unroll
+                for (int i = 0; i < QPT; ++i) {
+                    ok[i] = in_group(i, 0, k[0]);
+                    any = any | ok[i];
+                }
+                if (!__any_sync(0xffffffffu, any)) continue;  // warp-uniform
+#pragma unroll
+                for (int i = 0; i < QPT; ++i) {
+                    // two independent chains of dim groups
+                    bool a = ok[i], b = true;
+#pragma unroll
+                    for (int g = 1; g < D4 / 4; ++g) {
+                        if (g & 1) b = b & in_group(i, g, k[g]);
+                        else a = a & in_group(i, g, k[g]);
+                    }
+                    ok[i] = a & b;
+                }
+                const float v = row[D];
+#pragma unroll
+                for (int i = 0; i < QPT; ++i) {
+                    if (ok[i]) {
+                        cnt[i] += 1.f;
+                        sum[i] += v;
+                        sumsq[i] += (double)v * v;
+                    }
+                }
+            }
+        });
+
+#pragma unroll
+        for (int i = 0; i < QPT; ++i) {
+            double* p = partial + (size_t)c * 3 * QT + tid + i * NT;
+            p[0] = cnt[i];
+            p[QT] = sum[i];
+            p[2 * QT] = sumsq[i];
+        }
     }
-    if (live) {
-        out[(size_t)pos * 3] = cnt;
-        out[(size_t)pos * 3 + 1] = (float)sum;
-        out[(size_t)pos * 3 + 2] = (float)sumsq;
+}
+
+// Second pass: out[q] = sum of q's chunk partials, in chunk order.
+__global__ void __launch_bounds__(QT) moments_sum(
+    const double* __restrict__ partial, const int* __restrict__ off,
+    int Q, float* __restrict__ out)  // [Q, 3]
+{
+    const int t = blockIdx.x, tid = threadIdx.x;
+    const int pos = t * QT + tid;
+    double a0 = 0.0, a1 = 0.0, a2 = 0.0;
+    const int c1 = off[t + 1];
+    for (int c = off[t]; c < c1; ++c) {
+        const double* p = partial + (size_t)c * 3 * QT + tid;
+        a0 += p[0];
+        a1 += p[QT];
+        a2 += p[2 * QT];
     }
+    if (pos < Q) {
+        out[(size_t)pos * 3] = (float)a0;
+        out[(size_t)pos * 3 + 1] = (float)a1;
+        out[(size_t)pos * 3 + 2] = (float)a2;
+    }
+}
+
+template <int D4>
+cudaError_t run_d(const float* q_t, const float* rows, const int* perm,
+                  const float* w, const int* s_lo, const int* s_hi,
+                  const int* off, int Q, int D, int n_qt, int C,
+                  double* partial, float* out, cudaStream_t stream,
+                  int* grid) {
+    const size_t smem = ring_bytes<PIECE_N>(record_floats(D));
+    cudaError_t err = persistent_grid(moments_main<D4>, NT, smem, grid);
+    if (err != cudaSuccess) return err;
+    moments_main<D4><<<*grid, NT, smem, stream>>>(
+        q_t, rows, perm, w, s_lo, s_hi, off, Q, D, n_qt, C, partial);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    moments_sum<<<n_qt, QT, 0, stream>>>(partial, off, Q, out);
+    return cudaGetLastError();
+}
+
+// Both passes on `stream` (no synchronisation); *grid receives the main
+// pass's block count.  D in 1..MAX_D; C >= 1.
+inline cudaError_t run(const float* q_t, const float* rows, const int* perm,
+                       const float* w, const int* s_lo, const int* s_hi,
+                       const int* off, int Q, int D, int n_qt, int C,
+                       double* partial, float* out, cudaStream_t stream,
+                       int* grid) {
+#define BAND_CASE(G)                                                         \
+    case G:                                                                  \
+        return run_d<4 * G>(q_t, rows, perm, w, s_lo, s_hi, off, Q, D, n_qt, \
+                            C, partial, out, stream, grid);
+    switch ((D + 3) / 4) {
+        BAND_CASE(1) BAND_CASE(2) BAND_CASE(3) BAND_CASE(4)
+        BAND_CASE(5) BAND_CASE(6) BAND_CASE(7) BAND_CASE(8)
+        default: return cudaErrorInvalidValue;
+    }
+#undef BAND_CASE
 }
 
 }  // namespace band_moments

@@ -12,167 +12,297 @@
 //                    for all d of (count_r, sum_r, sumsq_r)
 // in full FP32, with the exact per-dimension test of the JAX kernel.
 //
-// What bounds it on the card.  The prepared store is read from device
-// memory once per query tile that survives the prune, and its bytes
-// (24 floats a row) are few next to the containment tests: about two
-// FP32 operations (subtract, compare with |.|) for each of the 20
-// dimensions of each (query, row) pair that the prune keeps.  So it is
-// bound by FP32 operations on the CUDA cores, at the pair count the
-// prune leaves.
+// What bounds it on the card.  The prepared store is read once per query
+// tile that keeps a piece, and its bytes (one 24-float record a row)
+// are few next to the containment tests: about two FP32 operations
+// (subtract, compare with |.|) for each of the 20 dimensions of each
+// (query, row) pair that the prune keeps.  So it is bound by FP32
+// operations on the CUDA cores, at the pair count the prune leaves.
 //
 // What the design does about that.
 //  * Pruning first.  Queries are sorted (by the wrapper) into the same
 //    band-cell / second-dim order as the rows, and every 128-query tile
-//    carries the extrema of both dims (qext).  A block skips a 2048-row
-//    tile whose band extrema (kbt) cannot overlap its own, and then a
-//    256-row sub-slice whose band and second-dim rectangle (kb, kb2)
-//    cannot; the pairs it skips are provably matchless.
-//  * One query per thread, its 20 coordinates and half-widths in
-//    registers.  The block stages each surviving sub-slice's keys,
-//    actions and moments in shared memory with coalesced loads; every
-//    thread then reads the same row at the same time (a broadcast, no
-//    bank conflicts), so the per-pair work is register arithmetic.
-//  * No atomics and no cross-block reduction: the Pallas grid's
-//    sequential N axis (a VMEM accumulator) becomes a loop inside the
-//    block, and each query's 3A accumulators live in shared memory laid
-//    out [3A][128] (thread-contiguous, conflict-free).  A query's sums
-//    are taken in row order, so results are deterministic run to run.
+//    carries the extrema of both dims (qext).  The wrapper's plan
+//    (store_kernels.peraction_plan) bounds each tile's kept sub-slices by
+//    one window, from the running max / suffix min of the sub-slice band
+//    extrema; inside it the kernel keeps the exact tests of the earlier
+//    design (tile band early-out on kbt, then the sub-slice band and
+//    second-dim rectangle on kb, kb2), so the pairs it examines are the
+//    same, and only the kept sub-slices are copied.
+//  * The window is split over the whole card: chunks of C sub-slices
+//    walked by a persistent grid sized from the occupancy API; each chunk
+//    writes its [3A][128] partial sums, and a second pass adds a query's
+//    chunks in chunk order (deterministic, no atomics on data).
+//  * Whole pieces before rows.  For every 128-row piece the prepare step
+//    stores its live rows' bounding box and per-action moment sums.
+//    fl(q - k) is monotone in k, so a query whose box holds both ends of
+//    the piece's box along every dim matches every live row of it
+//    exactly: it adds the piece's sums and skips its rows; a query past
+//    an end along some dim matches none.  Rows are walked only in the
+//    pieces where some query of the block is undecided, and a warp whose
+//    queries are all decided skips them.  On a store written by a fleet
+//    in lockstep most (query, piece) pairs are held whole.
+//  * Each row is one 24-float record (20 keys in the most-selective-first
+//    order `perm`, the action's int bits, 3 moments), so a piece is one
+//    contiguous 12 KB block, copied by cp.async.bulk into a two-buffer
+//    ring (chunk_ring.cuh) while the previous one is tested.  Keys are
+//    read as float4 broadcasts; after four dims a warp leaves a row that
+//    none of its queries can still contain.
+//  * One query per thread (two were measured slower), its 20
+//    coordinates and half-widths in registers; its 3A accumulators live
+//    in shared memory laid out [3A][128] (thread-contiguous,
+//    conflict-free).  A dead query slot (past B in the last tile) is
+//    +inf, out of reach of every piece, so it never makes its block walk
+//    rows.
 //  * The TPU kernel's bf16 distance prefilter is left out: it changes
-//    no result, and it existed to skip a slow VPU chain on the TPU.
-//    It is still to be ported (ROADMAP.md), as is any tensor-core use.
+//    no result, and whether it pays on this card is still open
+//    (ROADMAP.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chunk_ring.cuh"
+
 namespace {
 
-constexpr int OBS = 20;          // observation dims of a key
-constexpr int QT = 128;          // queries per block, one per thread
-constexpr int SUB_N = 256;       // rows per staged sub-slice
-constexpr int MAX_ACTIONS = 16;  // keeps shared memory within 48 KB
+using namespace chunk_ring;
 
-__global__ void __launch_bounds__(QT) peraction_kernel(
+constexpr int WARPS = QT / 32;   // one thread per query
+constexpr int PIECE_N = 128;    // rows per ring buffer and per summary
+constexpr int PIECES = SUB_N / PIECE_N;
+constexpr int OBS = 20;          // observation dims of a key
+constexpr int REC = 24;          // floats in a row record
+constexpr int MAX_ACTIONS = 16;
+
+size_t smem_bytes(int num_actions) {
+    return ring_bytes<PIECE_N>(REC)
+        + sizeof(float) * (size_t)3 * num_actions * QT  // accumulators
+        + sizeof(int) * (2 * QT + WARPS);               // kept lists, counts
+}
+
+// How a query relates to a piece's live rows, from their bounding box
+// box = [lo[OBS], hi[OBS]] (record order): 1 = every live row matches,
+// 2 = none does, 0 = undecided.  fl(q - k) is monotone in k, so the exact
+// test |fl(q - k)| <= w holds for every k in [lo, hi] iff it holds at
+// both ends, and fails for every k when fl(q - hi) > w or fl(q - lo) < -w.
+__device__ __forceinline__ int settle(const float (&q)[OBS],
+                                      const float (&wr)[OBS],
+                                      const float* __restrict__ box) {
+    const float4* b = reinterpret_cast<const float4*>(box);
+    bool in = true, out = false;
+#pragma unroll
+    for (int g = 0; g < OBS / 4; ++g) {
+        const float4 lo = __ldg(b + g), hi = __ldg(b + OBS / 4 + g);
+        const float l[4] = {lo.x, lo.y, lo.z, lo.w};
+        const float h[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int d = 4 * g + e;
+            const float a = q[d] - l[e], c = q[d] - h[e];
+            in = in & (fabsf(a) <= wr[d]) & (fabsf(c) <= wr[d]);
+            out = out | (c > wr[d]) | (a < -wr[d]);
+        }
+    }
+    return in ? 1 : (out ? 2 : 0);
+}
+
+__global__ void __launch_bounds__(QT) peraction_main(
     const float* __restrict__ queries,   // [B, OBS] (caller order)
     const int64_t* __restrict__ qorder,  // [B] sorted position -> query row
     const float* __restrict__ qext,      // [4, n_qt] band lo/hi, dim2 lo/hi
-    const float* __restrict__ keys,      // [OBS, n_pad]
-    const int* __restrict__ row_act,     // [n_pad]
-    const float* __restrict__ row_mom,   // [3, n_pad]
-    const float* __restrict__ kb,        // [2, n_pad / SUB_N]
-    const float* __restrict__ kb2,       // [2, n_pad / SUB_N]
+    const float* __restrict__ rows,      // [n_pad, REC] records
+    const int* __restrict__ perm,        // [OBS] obs dim of record slot d
+    const float* __restrict__ piece_box,  // [n_pad / PIECE_N, 2 OBS] box
+    const float* __restrict__ piece_mom,  // [n_pad / PIECE_N, 3A] sums
+    const float* __restrict__ kb,        // [2, n_sub]
+    const float* __restrict__ kb2,       // [2, n_sub]
     const float* __restrict__ kbt,       // [2, n_pad / n_tile]
     const float* __restrict__ w,         // [OBS]
     const float* __restrict__ w0p,       // [1] band half-width
     const float* __restrict__ w2p,       // [1] second-dim half-width
-    int B, int n_pad, int n_tile, int num_actions,
-    float* __restrict__ out)             // [B, 3 * num_actions]
+    const int* __restrict__ s_lo,        // [n_qt] window start (sub-slices)
+    const int* __restrict__ s_hi,        // [n_qt] window end
+    const int* __restrict__ off,         // [n_qt + 1] chunk offsets
+    int B, int n_pad, int n_tile, int num_actions, int C,
+    float* __restrict__ partial)         // [chunks, 3 * num_actions, QT]
 {
-    extern __shared__ float smem[];
-    float* ks = smem;                      // [OBS][SUB_N] staged keys
-    float* ms = ks + OBS * SUB_N;          // [3][SUB_N] staged moments
-    int* as = reinterpret_cast<int*>(ms + 3 * SUB_N);  // [SUB_N] actions
-    float* acc = reinterpret_cast<float*>(as + SUB_N);  // [3A][QT]
+    extern __shared__ __align__(128) unsigned char smem[];
+    Ring<PIECE_N> ring;
+    ring.init(smem, REC);
+    const int n_feat = 3 * num_actions;
+    float* acc = reinterpret_cast<float*>(smem + ring_bytes<PIECE_N>(REC));
+    int* klist = reinterpret_cast<int*>(acc + (size_t)n_feat * QT);  // [QT]
+    int* kwalk = klist + QT;                                         // [QT]
+    int* wcnt = kwalk + QT;                                          // [WARPS]
 
     const int tid = threadIdx.x;
-    const int tile = blockIdx.x;
-    const int n_qt = gridDim.x;
-    const int pos = tile * QT + tid;
-    const bool live = pos < B;
-    const int64_t qrow = live ? qorder[pos] : 0;
-
-    // A dead thread's query is NaN: |NaN - k| <= w is false for every row.
-    float q[OBS], wr[OBS];
-#pragma unroll
-    for (int d = 0; d < OBS; ++d) {
-        q[d] = live ? queries[qrow * OBS + d] : __int_as_float(0x7fc00000);
-        wr[d] = w[d];
-    }
-    const int n_feat = 3 * num_actions;
-    for (int f = 0; f < n_feat; ++f) acc[f * QT + tid] = 0.f;
-
-    const float w0 = *w0p, w2 = *w2p;
-    const float q_lo = qext[tile], q_hi = qext[n_qt + tile];
-    const float q2_lo = qext[2 * n_qt + tile], q2_hi = qext[3 * n_qt + tile];
+    const int lane = tid & 31, warp = tid >> 5;
+    const int n_qt = (B + QT - 1) / QT;
     const int n_sub = n_pad / SUB_N;
     const int n_tiles = n_pad / n_tile;
     const int per_tile = n_tile / SUB_N;
+    const float w0 = *w0p, w2 = *w2p;
 
-    for (int t = 0; t < n_tiles; ++t) {
-        // tile early-out on band extrema (uniform across the block)
-        if (!(kbt[t] - w0 <= q_hi && kbt[n_tiles + t] + w0 >= q_lo)) continue;
-        for (int s = t * per_tile; s < (t + 1) * per_tile; ++s) {
-            // sub-slice rectangle prune on band and second dim
-            if (!(kb[s] - w0 <= q_hi && kb[n_sub + s] + w0 >= q_lo
-                  && kb2[s] - w2 <= q2_hi && kb2[n_sub + s] + w2 >= q2_lo)) {
-                continue;
-            }
-            const int base = s * SUB_N;
-            __syncthreads();  // every thread is done with the last slice
-            for (int i = tid; i < OBS * SUB_N; i += QT) {
-                const int d = i / SUB_N, r = i - d * SUB_N;
-                ks[i] = keys[(size_t)d * n_pad + base + r];
-            }
-            for (int i = tid; i < 3 * SUB_N; i += QT) {
-                const int m = i / SUB_N, r = i - m * SUB_N;
-                ms[i] = row_mom[(size_t)m * n_pad + base + r];
-            }
-            for (int r = tid; r < SUB_N; r += QT) as[r] = row_act[base + r];
-            __syncthreads();
-
-            for (int r = 0; r < SUB_N; ++r) {
-                const int a = as[r];
-                if (a < 0) continue;  // same row on every thread: uniform
-                bool ok = true;
+    float wr[OBS];
 #pragma unroll
-                for (int d = 0; d < OBS; ++d) {
-                    ok &= fabsf(q[d] - ks[d * SUB_N + r]) <= wr[d];
-                }
-                if (ok) {
-                    float* c = acc + 3 * a * QT + tid;
-                    c[0] += ms[r];
-                    c[QT] += ms[SUB_N + r];
-                    c[2 * QT] += ms[2 * SUB_N + r];
-                }
+    for (int d = 0; d < OBS; ++d) wr[d] = __ldg(w + __ldg(perm + d));
+
+    const int n_chunks = __ldg(off + n_qt);
+    for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+        const int t = chunk_tile(off, n_qt, c);
+        const int s0 = __ldg(s_lo + t) + (c - __ldg(off + t)) * C;
+        const int n = min(C, __ldg(s_hi + t) - s0);
+        const float q_lo = qext[t], q_hi = qext[n_qt + t];
+        const float q2_lo = qext[2 * n_qt + t], q2_hi = qext[3 * n_qt + t];
+
+        // The chunk's kept sub-slices, in order: the tile band early-out,
+        // then the sub-slice band and second-dim rectangle.
+        bool kp = false;
+        if (tid < n) {
+            const int s = s0 + tid, tt = s / per_tile;
+            kp = kbt[tt] - w0 <= q_hi && kbt[n_tiles + tt] + w0 >= q_lo
+                && kb[s] - w0 <= q_hi && kb[n_sub + s] + w0 >= q_lo
+                && kb2[s] - w2 <= q2_hi && kb2[n_sub + s] + w2 >= q2_lo;
+        }
+        const unsigned bal = __ballot_sync(0xffffffffu, kp);
+        if (lane == 0) wcnt[warp] = __popc(bal);
+        __syncthreads();
+        int base = 0, n_kept = 0;
+#pragma unroll
+        for (int i = 0; i < WARPS; ++i) {
+            const int x = wcnt[i];
+            base += i < warp ? x : 0;
+            n_kept += x;
+        }
+        if (kp) klist[base + __popc(bal & ((1u << lane) - 1u))] = s0 + tid;
+
+        // This thread's query.  A dead slot (past B) is +inf: it lies in
+        // no row's box and out of reach of every piece, so it settles
+        // every piece and never makes its block walk rows.
+        const int pos = t * QT + tid;
+        const bool live = pos < B;
+        const int64_t qrow = live ? qorder[pos] : 0;
+        float q[OBS];
+#pragma unroll
+        for (int d = 0; d < OBS; ++d) {
+            q[d] = live ? queries[qrow * OBS + __ldg(perm + d)]
+                        : __int_as_float(0x7f800000);
+        }
+        for (int f = 0; f < n_feat; ++f) acc[f * QT + tid] = 0.f;
+        __syncthreads();
+
+        // Whole pieces first: a query that holds a piece's box takes its
+        // per-action sums at once, one outside its reach takes nothing;
+        // rows are walked only in the pieces where some query is undecided.
+        int n_walk = 0;
+        for (int j = 0; j < n_kept * PIECES; ++j) {
+            const int pc = klist[j / PIECES] * PIECES + j % PIECES;
+            const int how = settle(q, wr, piece_box + (size_t)pc * 2 * OBS);
+            if (how == 1) {
+                const float* m = piece_mom + (size_t)pc * n_feat;
+                for (int f = 0; f < n_feat; ++f) acc[f * QT + tid] += __ldg(m + f);
+            }
+            if (!__syncthreads_and(how != 0)) {
+                if (tid == 0) kwalk[n_walk] = pc;
+                ++n_walk;
             }
         }
+        __syncthreads();  // kwalk is complete
+
+        ring.walk(rows, n_walk, [&](int j) { return kwalk[j] * PIECE_N; },
+                  [&](const float* buf, int j) {
+            // the query is undecided on this piece
+            const bool open =
+                settle(q, wr, piece_box + (size_t)kwalk[j] * 2 * OBS) == 0;
+            if (!__any_sync(0xffffffffu, open)) return;  // warp-uniform
+            // the query lies in the row's box along dims 4g..4g+3
+            auto in_group = [&](int g, const float4& k) {
+                return ((fabsf(q[4 * g] - k.x) <= wr[4 * g])
+                        & (fabsf(q[4 * g + 1] - k.y) <= wr[4 * g + 1]))
+                    & ((fabsf(q[4 * g + 2] - k.z) <= wr[4 * g + 2])
+                       & (fabsf(q[4 * g + 3] - k.w) <= wr[4 * g + 3]));
+            };
+            for (int r = 0; r < PIECE_N; ++r) {
+                const float4* k4 = reinterpret_cast<const float4*>(buf + r * REC);
+                const float4 tail = k4[OBS / 4];  // action bits, 3 moments
+                const int a = __float_as_int(tail.x);
+                if (a < 0) continue;  // same row on every thread: uniform
+                bool ok = open & in_group(0, k4[0]);
+                if (!__any_sync(0xffffffffu, ok)) continue;  // warp-uniform
+#pragma unroll
+                for (int g = 1; g < OBS / 4; ++g) ok = ok & in_group(g, k4[g]);
+                if (ok) {
+                    float* cc = acc + 3 * a * QT + tid;
+                    cc[0] += tail.y;
+                    cc[QT] += tail.z;
+                    cc[2 * QT] += tail.w;
+                }
+            }
+        });
+
+        float* p = partial + (size_t)c * n_feat * QT + tid;
+        for (int f = 0; f < n_feat; ++f) p[(size_t)f * QT] = acc[f * QT + tid];
     }
-    if (live) {
-        float* o = out + qrow * n_feat;
-        for (int f = 0; f < n_feat; ++f) o[f] = acc[f * QT + tid];
+}
+
+// Second pass: out[query] = sum of its chunk partials, in chunk order.
+__global__ void __launch_bounds__(QT) peraction_sum(
+    const float* __restrict__ partial, const int* __restrict__ off,
+    const int64_t* __restrict__ qorder, int B, int n_feat,
+    float* __restrict__ out)             // [B, n_feat] (caller order)
+{
+    const int t = blockIdx.x, tid = threadIdx.x;
+    const int pos = t * QT + tid;
+    if (pos >= B) return;
+    float* o = out + qorder[pos] * n_feat;
+    const int c0 = off[t], c1 = off[t + 1];
+    for (int f = 0; f < n_feat; ++f) {
+        float s = 0.f;
+        for (int c = c0; c < c1; ++c) {
+            s += partial[((size_t)c * n_feat + f) * QT + tid];
+        }
+        o[f] = s;
     }
 }
 
 }  // namespace
 
-// C entry point.  Launches on ``stream`` without synchronising and
-// returns cudaGetLastError() (0 = launched).  The caller checks shapes,
-// types, contiguity and the device; n_pad must be a multiple of n_tile
-// and n_tile a multiple of 256.
+// C entry point: both passes on ``stream``, without synchronising;
+// returns cudaGetLastError() (0 = launched) and writes the main pass's
+// block count to the host int ``grid``.  The caller checks shapes, types,
+// contiguity and the device; n_pad is a multiple of n_tile, n_tile of
+// 256, 1 <= C <= 64, and ``partial`` holds ``off[n_qt]`` chunks of
+// 3 * num_actions x 128 floats.
 extern "C" int peraction_moments(
     const void* queries, const void* qorder, const void* qext,
-    const void* keys, const void* row_act, const void* row_mom,
-    const void* kb, const void* kb2, const void* kbt, const void* w,
-    const void* w0, const void* w2,
-    int B, int n_pad, int n_tile, int num_actions,
-    void* out, void* stream)
+    const void* rows, const void* perm, const void* piece_box,
+    const void* piece_mom, const void* kb, const void* kb2, const void* kbt,
+    const void* w, const void* w0, const void* w2,
+    const void* s_lo, const void* s_hi, const void* off,
+    int B, int n_pad, int n_tile, int num_actions, int C,
+    void* partial, void* out, void* stream, int* grid)
 {
     if (B <= 0 || num_actions < 1 || num_actions > MAX_ACTIONS
-        || n_tile % SUB_N != 0 || n_pad % n_tile != 0) {
+        || n_tile % SUB_N != 0 || n_pad % n_tile != 0 || C < 1
+        || C * PIECES > QT) {  // the kept lists hold QT entries
         return (int)cudaErrorInvalidValue;
     }
-    const size_t smem = sizeof(float)
-        * ((size_t)OBS * SUB_N + 3 * SUB_N + SUB_N
-           + (size_t)3 * num_actions * QT);
-    cudaError_t err = cudaFuncSetAttribute(
-        peraction_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    const size_t smem = smem_bytes(num_actions);
+    cudaError_t err = persistent_grid(peraction_main, QT, smem, grid);
+    if (err != cudaSuccess) return (int)err;
+    const cudaStream_t st = (cudaStream_t)stream;
+    peraction_main<<<*grid, QT, smem, st>>>(
+        (const float*)queries, (const int64_t*)qorder, (const float*)qext,
+        (const float*)rows, (const int*)perm, (const float*)piece_box,
+        (const float*)piece_mom, (const float*)kb, (const float*)kb2,
+        (const float*)kbt, (const float*)w, (const float*)w0,
+        (const float*)w2, (const int*)s_lo, (const int*)s_hi,
+        (const int*)off, B, n_pad, n_tile, num_actions, C, (float*)partial);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int n_qt = (B + QT - 1) / QT;
-    peraction_kernel<<<n_qt, QT, smem, (cudaStream_t)stream>>>(
-        (const float*)queries, (const int64_t*)qorder, (const float*)qext,
-        (const float*)keys, (const int*)row_act, (const float*)row_mom,
-        (const float*)kb, (const float*)kb2, (const float*)kbt,
-        (const float*)w, (const float*)w0, (const float*)w2,
-        B, n_pad, n_tile, num_actions, (float*)out);
+    peraction_sum<<<n_qt, QT, 0, st>>>((const float*)partial,
+                                       (const int*)off, (const int64_t*)qorder,
+                                       B, 3 * num_actions, (float*)out);
     return (int)cudaGetLastError();
 }

@@ -6,79 +6,59 @@
 //
 // What it computes.  Q D-dim queries (D <= 32) against N rows sorted by
 // a band key (ops/store_kernels.py::sorted_query_operands and
-// grouped_query_operands build the order, the padding and the extrema).
-// For every query q:
+// grouped_query_operands build the order, the padding, the row records
+// and the extrema).  For every query q:
 //     out[q, :] = sum over rows r with valid_r != 0 and |q_d - k_rd| <= w_d
 //                 for all d of (1, v_r, v_r^2)
 // with the exact f32 per-dimension test of the JAX kernel (sums kept in
 // f64, returned as f32).
 //
-// What bounds it on the card.  The rows are few bytes ((D + 2) floats
-// each, read once per query tile that keeps them) next to the tests:
-// about two FP32 operations (subtract, compare with |.|) for each
-// dimension of each (query, row) pair that the band prune keeps, plus
-// three adds per match.  So it is bound by FP32 operations on the CUDA
-// cores, at the pair count the prune leaves.
+// What bounds it on the card.  The rows are few bytes (one record of
+// round_up(D + 2, 4) floats each) next to the tests: about two FP32
+// operations (subtract, compare with |.|) for each dimension of each
+// (query, row) pair that the band prune keeps, plus three adds per
+// match.  So it is bound by FP32 operations on the CUDA cores, at the
+// pair count the prune leaves.
 //
-// What the design does about that.
-//  * Pruning first.  Rows and queries arrive in band order, and every
-//    128-query tile carries its band extrema (qb), every 256-row
-//    sub-slice its own (kb).  A block skips each sub-slice whose
-//    [kb_lo - w0, kb_hi + w0] cannot meet [q_lo, q_hi]: the same f32
-//    test as store_kernels.sorted_prune_keep, so the skipped pairs are
-//    provably matchless.  Because the rows are sorted, the kept
-//    sub-slices form one band window per tile.
-//  * One query per thread, sub-slices staged in shared memory and read
-//    as a broadcast, sums in registers in row order (f64 sums, f32
-//    count): the layout of band_moments.cuh, shared with box_moments.cu.
-//    The Pallas grid's sequential N axis (a VMEM accumulator) becomes the
-//    loop inside the block; the two f64 adds per match are few next to
-//    the ~2 D f32 operations per pair.
+// What the design does about that (band_moments.cuh has the body).
+//  * Pruning first, as a plan.  Rows and queries arrive in band order;
+//    because the rows are sorted, the sub-slices a 128-query tile keeps
+//    form one window, which the wrapper finds with two searchsorted calls
+//    on the device (store_kernels.sorted_plan): the same f32 test as
+//    sorted_prune_keep, so the skipped pairs are provably matchless and
+//    no skipped sub-slice is even visited.
+//  * The window is split over the whole card.  Chunks of C sub-slices
+//    are walked by a persistent grid sized from the occupancy API, so a
+//    tile whose window spans tens of thousands of rows no longer runs on
+//    one block while the others idle; a second pass adds each query's
+//    chunk partials in chunk order (deterministic, no atomics).
+//  * Sub-slices arrive by cp.async.bulk into a two-buffer ring, keys are
+//    read as float4 broadcasts, D is a template parameter, the dims are
+//    tested most selective first and a warp leaves a row after four dims
+//    when none of its queries can still match.
 //  * The TPU kernel's bf16 distance prefilter is left out: it changes no
-//    result, and it existed to skip a slow VPU chain on the TPU.  It is
-//    still to be ported (ROADMAP.md), as is any tensor-core use.
-//  * Low occupancy is known: the trainer's 32,768 queries make 256
-//    blocks of 128 threads on 132 SMs.
+//    result, and whether it pays on this card is still open (ROADMAP.md).
 
 #include "band_moments.cuh"
 
-namespace {
-
 using namespace band_moments;
 
-__global__ void __launch_bounds__(QT) sorted_kernel(
-    const float* __restrict__ q_t,    // [D, Q] queries, band order
-    const float* __restrict__ keys,   // [D, n_pad] rows, band order
-    const float* __restrict__ vals,   // [n_pad]
-    const float* __restrict__ valid,  // [n_pad] 1 / 0
-    const float* __restrict__ kb,     // [2, n_pad / SUB_N] lo / hi
-    const float* __restrict__ qb,     // [2, n_qt] lo / hi
-    const float* __restrict__ w,      // [D]
-    const float* __restrict__ w0p,    // [1] band half-width of the prune
-    int Q, int n_pad, int D,
-    float* __restrict__ out)          // [Q, 3], band order
-{
-    moments_block<true>(q_t, keys, vals, valid, kb, qb, w, w0p, Q, n_pad, D,
-                        out);
-}
-
-}  // namespace
-
-// C entry point.  Launches on ``stream`` without synchronising and
-// returns cudaGetLastError() (0 = launched).  The caller checks shapes,
-// types, contiguity and the device; n_pad must be a multiple of 256.
+// C entry point: both passes on ``stream``, without synchronising;
+// returns cudaGetLastError() (0 = launched) and writes the main pass's
+// block count to the host int ``grid``.  The caller checks shapes, types,
+// contiguity and the device, and sizes ``partial`` for every chunk of the
+// plan (``off[n_qt]`` chunks of 3 x 128 doubles).
 extern "C" int sorted_moments(
-    const void* q_t, const void* keys, const void* vals, const void* valid,
-    const void* kb, const void* qb, const void* w, const void* w0,
-    int Q, int n_pad, int D, void* out, void* stream)
+    const void* q_t, const void* rows, const void* perm, const void* w,
+    const void* s_lo, const void* s_hi, const void* off,
+    int Q, int D, int n_qt, int C, void* partial, void* out, void* stream,
+    int* grid)
 {
-    if (Q <= 0 || D < 1 || D > MAX_D || n_pad <= 0 || n_pad % SUB_N != 0) {
+    if (Q <= 0 || D < 1 || D > MAX_D || C < 1 || n_qt != (Q + QT - 1) / QT) {
         return (int)cudaErrorInvalidValue;
     }
-    const int n_qt = (Q + QT - 1) / QT;
-    sorted_kernel<<<n_qt, QT, smem_bytes(D), (cudaStream_t)stream>>>(
-        (const float*)q_t, (const float*)keys, (const float*)vals,
-        (const float*)valid, (const float*)kb, (const float*)qb,
-        (const float*)w, (const float*)w0, Q, n_pad, D, (float*)out);
-    return (int)cudaGetLastError();
+    return (int)run((const float*)q_t, (const float*)rows, (const int*)perm,
+                    (const float*)w, (const int*)s_lo, (const int*)s_hi,
+                    (const int*)off, Q, D, n_qt, C, (double*)partial,
+                    (float*)out, (cudaStream_t)stream, grid);
 }

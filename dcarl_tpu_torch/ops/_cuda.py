@@ -32,19 +32,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel name -> ctypes argument types of its C entry point.  Every
-# pointer and the stream are c_void_p (a plain c_int would cut a 64-bit
-# pointer); each entry point returns cudaGetLastError() as an int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# device pointer and the stream are c_void_p (a plain c_int would cut a
+# 64-bit pointer); the last argument is a host int that receives the
+# main pass's block count.  Each entry point returns cudaGetLastError()
+# as an int.
+_P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 SIGNATURES: Dict[str, Sequence] = {
-    "peraction_moments": (_P,) * 12 + (_I,) * 4 + (_P, _P),
-    "sorted_moments": (_P,) * 8 + (_I,) * 3 + (_P, _P),
-    "box_moments": (_P,) * 5 + (_I,) * 3 + (_P, _P),
+    "peraction_moments": (_P,) * 16 + (_I,) * 5 + (_P,) * 3 + (_IP,),
+    "sorted_moments": (_P,) * 7 + (_I,) * 4 + (_P,) * 3 + (_IP,),
+    "box_moments": (_P,) * 7 + (_I,) * 4 + (_P,) * 3 + (_IP,),
 }
 
 # Launches per kernel: each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show which kernels it went
 # through.  Zero it with ``LAUNCHES.clear()``.
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+
+# Blocks in the persistent main pass of each kernel's latest launch (the
+# occupancy on this device times its SMs).
+GRID: Dict[str, int] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -111,3 +117,4 @@ def load(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+

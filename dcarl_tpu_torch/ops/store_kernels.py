@@ -21,14 +21,21 @@ moments into its action's slots answers all A actions at once.
 
 * :func:`prepare_peraction_store` (torch, on the device of its inputs)
   sorts the store by (band cell, second dim, row hash), collapses
-  bitwise-identical rows into weighted moments, and builds the feature
-  block and the sub-slice extrema the kernel prunes with.  A deployment
-  loop whose store is fixed runs it once per run.
+  bitwise-identical rows into weighted moments, and builds the kernel's
+  row records, the sub-slice extrema it prunes with and the per-piece
+  boxes and sums it settles whole pieces with.  A deployment loop whose
+  store is fixed runs it once per run.
 * :func:`query_peraction_prepared` answers B queries against a prepared
   store: for CUDA tensors it launches ``csrc/peraction_moments.cu``
   (or raises); for CPU tensors it takes the plain version,
   :func:`peraction_moments_plain`, a brute containment followed by a
   full-FP32 feature product.
+
+Every kernel launch first builds a :class:`Plan` on the device, with no
+host synchronisation (:func:`peraction_plan`, :func:`sorted_plan`,
+:func:`brute_plan`): each 128-query tile's window of 256-row sub-slices,
+cut into chunks that a persistent grid walks; a second pass in the same
+launch adds each query's chunk partials in chunk order.
 """
 
 from __future__ import annotations
@@ -44,13 +51,75 @@ from dcarl_tpu_torch.ops import _cuda
 # Finite padding key: far outside any real key range (same value as the
 # JAX package's pallas_store._PAD and core/store.py SENTINEL_KEY).
 _PAD = 1.0e9
-_QT = 128     # queries per kernel block (csrc/peraction_moments.cu QT)
-_SUB_N = 256  # rows per kernel sub-slice (csrc/peraction_moments.cu SUB_N)
+_QT = 128     # queries per tile (csrc/chunk_ring.cuh QT)
+_SUB_N = 256  # rows per sub-slice (csrc/chunk_ring.cuh SUB_N)
 _MAX_ACTIONS = 16
+_PA_REC = 24  # floats in a per-action row record: 20 keys, action, 3 moments
+_PA_MAX_CHUNK = 64  # sub-slices a per-action chunk may hold (one per thread)
+_PA_PIECE_N = 128   # rows per summarised piece (csrc/peraction_moments.cu)
+# Bound on a launch's partial-sum scratch: the chunk size C doubles until
+# the most chunks the shapes allow fit (about 280 MB at 65,536 queries x
+# 2^18 rows with 11 actions).
+_SCRATCH_BYTES = 320 << 20
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+class Plan(NamedTuple):
+    """How a launch splits its work: query tile t examines the row
+    sub-slices ``[s_lo[t], s_hi[t])``, cut into chunks of ``chunk``; the
+    tile owns chunks ``[off[t], off[t + 1])``.  ``max_chunks`` bounds
+    ``off[-1]`` from the shapes alone (it sizes the scratch)."""
+
+    s_lo: torch.Tensor  # [n_qt] i32
+    s_hi: torch.Tensor  # [n_qt] i32, >= s_lo
+    off: torch.Tensor   # [n_qt + 1] i32 chunk offsets
+    chunk: int
+    max_chunks: int
+
+
+def _chunk_size(n_qt: int, n_sub: int, chunk_bytes: int, c_min: int,
+                c_max: int) -> int:
+    c = c_min
+    while c < c_max and n_qt * -(-n_sub // c) * chunk_bytes > _SCRATCH_BYTES:
+        c *= 2
+    return c
+
+
+def _chunk_plan(s_lo: torch.Tensor, s_hi: torch.Tensor, n_sub: int,
+                chunk: int) -> Plan:
+    """Cut the windows into chunks, on the device of the windows (no
+    host synchronisation).  A tile's window is at most ``n_sub`` long, so
+    it takes at most ``ceil(n_sub / chunk)`` chunks."""
+    s_lo = s_lo.to(torch.int32)
+    length = torch.clamp(s_hi.to(torch.int32) - s_lo, min=0)
+    n_chunks = torch.div(length + (chunk - 1), chunk, rounding_mode="floor")
+    off = torch.cat([torch.zeros(1, dtype=torch.int32, device=s_lo.device),
+                     torch.cumsum(n_chunks, 0, dtype=torch.int32)])
+    return Plan(s_lo=s_lo, s_hi=s_lo + length, off=off, chunk=chunk,
+                max_chunks=s_lo.shape[0] * -(-n_sub // chunk))
+
+
+def _dim_order(keys: torch.Tensor, valid: torch.Tensor, w: torch.Tensor,
+               last: tuple) -> torch.Tensor:
+    """[D] i32 key dims, most selective first: spread (mean |x - mean| of
+    the valid rows) over half-width, the dims in ``last`` (ints or
+    device scalars) at the end: the rows a tile examines are already
+    near its queries along those, so they reject least there.  The
+    per-dim tests are AND-ed, so any order gives the same result."""
+    vf = valid.to(torch.float32)
+    cnt = torch.clamp(vf.sum(), min=1.0)
+    mean = (vf @ keys) / cnt
+    sel = (vf @ torch.abs(keys - mean)) / cnt / torch.clamp(w, min=1e-9)
+    sel = torch.nan_to_num(sel, nan=0.0, posinf=3e38)
+    for i, dim in enumerate(last):
+        if isinstance(dim, int):
+            sel[dim] = -1.0 - i
+        else:
+            sel = sel.index_fill(0, dim.reshape(1).to(torch.int64), -1.0 - i)
+    return torch.argsort(sel, descending=True, stable=True).to(torch.int32)
 
 
 class PreparedPerActionStore(NamedTuple):
@@ -62,6 +131,14 @@ class PreparedPerActionStore(NamedTuple):
     row_act: torch.Tensor   # [n_pad] i32 action of the row; -1 adds nothing
     row_mom: torch.Tensor   # [3, n_pad] f32 (count, sum v, sum v^2) of
     #                         the row's run of identical keys
+    rows: torch.Tensor      # [n_pad, 24] f32 the kernel's row records:
+    #                         keys_t[perm], row_act's int bits, row_mom
+    perm: torch.Tensor      # [OBS] i32 obs dim of record slot d
+    piece_box: torch.Tensor  # [n_pad/128, 2 OBS] f32 per 128-row piece:
+    #                          min, then max, of its live rows' keys
+    #                          (record order); +inf / -inf with none live
+    piece_mom: torch.Tensor  # [n_pad/128, 3A] f32 per piece: the feature
+    #                          block summed over its rows
     kb: torch.Tensor        # [2, n_pad/sub_n] band extrema per sub-slice
     kb2: torch.Tensor       # [2, n_pad/sub_n] second-dim extrema
     kbt: torch.Tensor       # [2, n_pad/n_tile] band extrema per tile
@@ -208,8 +285,18 @@ def prepare_peraction_store(
     ks_p[:n] = sk_s
     k2_p = torch.full((n_pad,), _PAD, dtype=torch.float32, device=dev)
     k2_p[:n] = s2_s
+    # the band and second dims go last: the prune has already bounded them
+    perm = _dim_order(keys[:, :obs_dim], valid, w[:obs_dim],
+                      (sdim2, band_dim))
+    keys_r = keys_t.index_select(0, perm.to(torch.int64)).T   # [n_pad, OBS]
+    rows = torch.cat([keys_r, row_act.view(torch.float32)[:, None],
+                      row_mom.T], 1)
+    piece_box, piece_mom = _piece_summary(keys_r, row_act, row_mom,
+                                          num_actions)
     return PreparedPerActionStore(
         keys_t=keys_t, row_act=row_act, row_mom=row_mom,
+        rows=rows.contiguous(), perm=perm, piece_box=piece_box,
+        piece_mom=piece_mom,
         kb=_extrema(ks_p, sub_n), kb2=_extrema(k2_p, sub_n),
         kbt=_extrema(ks_p, n_tile), w_col=w[:obs_dim].contiguous(),
         w0=w[band_dim].reshape(1), w2=w2.reshape(1), sdim2=sdim2,
@@ -217,14 +304,35 @@ def prepare_peraction_store(
         n_tile=n_tile, sub_n=sub_n)
 
 
+def _feature_block(row_act: torch.Tensor, row_mom: torch.Tensor,
+                   num_actions: int) -> torch.Tensor:
+    a = torch.arange(num_actions, device=row_act.device)
+    onehot = (row_act[None, :] == a[:, None]).to(torch.float32)   # [A, n]
+    return (onehot[:, None, :] * row_mom[None]).reshape(3 * num_actions, -1)
+
+
 def feature_block(prep: PreparedPerActionStore) -> torch.Tensor:
     """[3A, n_pad] f32 ``feats[a*3 + m, r] = 1[action_r == a] *
     moment_m(r)``: the JAX kernel's feature operand (its ``rows_cat``
     below the keys), the row moments scattered to their action's slots."""
-    a = torch.arange(prep.num_actions, device=prep.row_act.device)
-    onehot = (prep.row_act[None, :] == a[:, None]).to(torch.float32)  # [A, n]
-    return (onehot[:, None, :] * prep.row_mom[None]).reshape(
-        3 * prep.num_actions, -1)
+    return _feature_block(prep.row_act, prep.row_mom, prep.num_actions)
+
+
+def _piece_summary(keys_r, row_act, row_mom, num_actions):
+    """Per 128-row piece: the bounding box of its live rows' keys
+    ([n_pieces, 2 OBS], min then max) and its feature block summed over
+    its rows ([n_pieces, 3A]).  A query whose box holds the whole
+    bounding box matches every live row of the piece, so the kernel adds
+    the sums and skips the rows."""
+    n_pad, obs_dim = keys_r.shape
+    n_pc = n_pad // _PA_PIECE_N
+    k = keys_r.reshape(n_pc, _PA_PIECE_N, obs_dim)
+    live = (row_act >= 0).reshape(n_pc, _PA_PIECE_N, 1)
+    box = torch.cat([torch.where(live, k, torch.inf).amin(1),
+                     torch.where(live, k, -torch.inf).amax(1)], 1)
+    mom = _feature_block(row_act, row_mom, num_actions).reshape(
+        3 * num_actions, n_pc, _PA_PIECE_N).sum(-1).T
+    return box.contiguous(), mom.contiguous()
 
 
 def query_operands(prep: PreparedPerActionStore, queries: torch.Tensor,
@@ -286,39 +394,84 @@ def _check_cuda_operands(prep: PreparedPerActionStore, queries: torch.Tensor):
                          f"the store was prepared with n_tile={prep.n_tile}")
     if not 1 <= prep.num_actions <= _MAX_ACTIONS:
         raise ValueError(f"the kernel takes 1..{_MAX_ACTIONS} actions")
-    for name in ("keys_t", "row_act", "row_mom", "kb", "kb2", "kbt",
-                 "w_col", "w0", "w2"):
+    for name in ("keys_t", "row_act", "row_mom", "rows", "perm", "piece_box",
+                 "piece_mom", "kb", "kb2", "kbt", "w_col", "w0", "w2"):
         t = getattr(prep, name)
         if t.device != queries.device:
             raise ValueError(f"prepared {name} is on {t.device}, queries on "
                              f"{queries.device}")
         if not t.is_contiguous():
             raise ValueError(f"prepared {name} must be contiguous")
-    if prep.row_act.dtype != torch.int32:
-        raise TypeError("prepared row_act must be int32")
+    if prep.row_act.dtype != torch.int32 or prep.perm.dtype != torch.int32:
+        raise TypeError("prepared row_act and perm must be int32")
+    for name in ("rows", "piece_box", "piece_mom"):
+        if getattr(prep, name).dtype != torch.float32:
+            raise TypeError(f"prepared {name} must be float32")
+    n_pad = prep.keys_t.shape[1]
+    n_pc = n_pad // _PA_PIECE_N
+    if prep.rows.shape != (n_pad, _PA_REC) \
+            or prep.perm.shape != (obs_dim,) \
+            or prep.piece_box.shape != (n_pc, 2 * obs_dim) \
+            or prep.piece_mom.shape != (n_pc, 3 * prep.num_actions):
+        raise ValueError(f"prepared rows must be [n_pad, {_PA_REC}], perm "
+                         f"[{obs_dim}], piece_box [n_pad / {_PA_PIECE_N}, "
+                         f"{2 * obs_dim}] and piece_mom [n_pad / "
+                         f"{_PA_PIECE_N}, 3A]; got {tuple(prep.rows.shape)}, "
+                         f"{tuple(prep.perm.shape)}, "
+                         f"{tuple(prep.piece_box.shape)}, "
+                         f"{tuple(prep.piece_mom.shape)}")
+
+
+def peraction_plan(prep: PreparedPerActionStore, qext: torch.Tensor,
+                   chunk: "int | None" = None) -> Plan:
+    """The per-action kernel's plan.  Rows are sorted by band cell, then
+    by the second dim, so the sub-slice band extrema are monotone only
+    cell by cell; their running max (of ``kb[1]``) and suffix min (of
+    ``kb[0]``) are monotone, and the window they give each tile holds
+    every sub-slice :func:`prune_keep` keeps (the kernel repeats the
+    exact tests inside it)."""
+    n_sub = prep.kb.shape[1]
+    n_qt = qext.shape[1]
+    if chunk is None:
+        chunk = _chunk_size(n_qt, n_sub, 4 * 3 * prep.num_actions * _QT,
+                            8, _PA_MAX_CHUNK)
+    env_hi = torch.cummax(prep.kb[1], 0).values + prep.w0
+    env_lo = torch.flip(torch.cummin(torch.flip(prep.kb[0], (0,)), 0).values,
+                        (0,)) - prep.w0
+    s_lo = torch.searchsorted(env_hi, qext[0].contiguous(), out_int32=True)
+    s_hi = torch.searchsorted(env_lo, qext[1].contiguous(), out_int32=True,
+                              right=True)
+    return _chunk_plan(s_lo, s_hi, n_sub, chunk)
 
 
 def launch_peraction(prep: PreparedPerActionStore, queries: torch.Tensor,
                      qorder: torch.Tensor, qext: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/peraction_moments.cu`` on the current stream:
-    [B, A, 3] moments of the (checked) queries."""
+    """Plan, then launch ``csrc/peraction_moments.cu`` (both passes) on
+    the current stream: [B, A, 3] moments of the (checked) queries."""
     b = queries.shape[0]
     num_actions = prep.num_actions
-    out = torch.empty((b, 3 * num_actions), dtype=torch.float32,
-                      device=queries.device)
+    dev = queries.device
+    plan = peraction_plan(prep, qext)
+    partial = torch.empty((plan.max_chunks, 3 * num_actions, _QT),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty((b, 3 * num_actions), dtype=torch.float32, device=dev)
     fn = _cuda.load("peraction_moments").peraction_moments
-    p = ctypes.c_void_p
+    p, grid = ctypes.c_void_p, ctypes.c_int(0)
     err = fn(p(queries.data_ptr()), p(qorder.data_ptr()), p(qext.data_ptr()),
-             p(prep.keys_t.data_ptr()), p(prep.row_act.data_ptr()),
-             p(prep.row_mom.data_ptr()), p(prep.kb.data_ptr()),
-             p(prep.kb2.data_ptr()), p(prep.kbt.data_ptr()),
-             p(prep.w_col.data_ptr()), p(prep.w0.data_ptr()),
-             p(prep.w2.data_ptr()), b, prep.keys_t.shape[1], prep.n_tile,
-             num_actions, p(out.data_ptr()),
-             p(torch.cuda.current_stream(queries.device).cuda_stream))
+             p(prep.rows.data_ptr()), p(prep.perm.data_ptr()),
+             p(prep.piece_box.data_ptr()), p(prep.piece_mom.data_ptr()),
+             p(prep.kb.data_ptr()), p(prep.kb2.data_ptr()),
+             p(prep.kbt.data_ptr()), p(prep.w_col.data_ptr()),
+             p(prep.w0.data_ptr()), p(prep.w2.data_ptr()),
+             p(plan.s_lo.data_ptr()), p(plan.s_hi.data_ptr()),
+             p(plan.off.data_ptr()), b, prep.keys_t.shape[1], prep.n_tile,
+             num_actions, plan.chunk, p(partial.data_ptr()),
+             p(out.data_ptr()), p(torch.cuda.current_stream(dev).cuda_stream),
+             ctypes.byref(grid))
     if err != 0:
         raise RuntimeError(f"peraction_moments launch failed: CUDA error {err}")
     _cuda.LAUNCHES["peraction_moments"] += 1
+    _cuda.GRID["peraction_moments"] = grid.value
     return out.reshape(b, num_actions, 3)
 
 
@@ -363,9 +516,28 @@ def box_query_moments_peraction(
 # [Q, 3] moments against band-sorted rows (csrc/sorted_moments.cu)
 # ---------------------------------------------------------------------------
 
-_SQT = 128      # queries per block (csrc/sorted_moments.cu, box_moments.cu QT)
-_SSUB_N = 256   # rows per staged sub-slice (both kernels' SUB_N)
+_SQT = 128      # queries per tile (csrc/chunk_ring.cuh QT)
+_SSUB_N = 256   # rows per sub-slice (csrc/chunk_ring.cuh SUB_N)
 _MAX_D = 32     # widest key both kernels take
+
+
+def record_floats(d: int) -> int:
+    """Floats in a [Q, 3] kernel's row record: d keys, v, valid, padded
+    to a multiple of 4 (csrc/band_moments.cuh record_floats)."""
+    return _round_up(d + 2, 4)
+
+
+def _band_rows(keys_t: torch.Tensor, vals: torch.Tensor, valid: torch.Tensor,
+               perm: torch.Tensor) -> torch.Tensor:
+    """[n_pad, record_floats(D)] f32 row records: ``keys_t[perm]``,
+    then v, then the valid flag, then zeros."""
+    d, n_pad = keys_t.shape
+    rows = torch.zeros((n_pad, record_floats(d)), dtype=torch.float32,
+                       device=keys_t.device)
+    rows[:, :d] = keys_t.index_select(0, perm.to(torch.int64)).T
+    rows[:, d] = vals
+    rows[:, d + 1] = valid
+    return rows
 
 
 class SortedOperands(NamedTuple):
@@ -377,16 +549,20 @@ class SortedOperands(NamedTuple):
     keys_t: torch.Tensor  # [D, n_pad] f32 rows, band order; padding _PAD
     vals: torch.Tensor    # [n_pad] f32 (0 on padding)
     valid: torch.Tensor   # [n_pad] f32 1 / 0 (0 on padding)
+    rows: torch.Tensor    # [n_pad, record_floats(D)] f32 the kernel's row
+    #                       records (_band_rows of the three above)
+    perm: torch.Tensor    # [D] i32 key dim of record slot d
     kb: torch.Tensor      # [2, n_pad / 256] band-key extrema per sub-slice
     qb: torch.Tensor      # [2, ceil(Q / 128)] band-key extrema per query tile
     w: torch.Tensor       # [D] f32 half-widths
     w0: torch.Tensor      # [1] f32 band half-width of the prune
 
 
-def _sorted_operands(keys_s, vals_s, valid_s, sk_s, q_s, qk_s, w, w0
-                     ) -> SortedOperands:
+def _sorted_operands(keys_s, vals_s, valid_s, sk_s, q_s, qk_s, w, w0,
+                     sort_dims) -> SortedOperands:
     """Pad and lay out rows and queries already in band order; the
-    extrema are taken over the same f32 values the kernel compares."""
+    extrema are taken over the same f32 values the kernel compares.
+    ``sort_dims`` are the key dims the band key is made of (tested last)."""
     n, d = keys_s.shape
     dev = keys_s.device
     n_pad = _round_up(max(n, _SSUB_N), _SSUB_N)
@@ -402,17 +578,36 @@ def _sorted_operands(keys_s, vals_s, valid_s, sk_s, q_s, qk_s, w, w0
     pad = _round_up(q, _SQT) - q
     # pad by repeating the last sorted query: the extrema stay exact
     qk_p = torch.cat([qk_s, qk_s[-1:].expand(pad)])
+    perm = _dim_order(keys_s, valid_s, w, sort_dims)
     return SortedOperands(
         q_t=q_s.T.contiguous(), keys_t=keys_t, vals=vals, valid=valid,
+        rows=_band_rows(keys_t, vals, valid, perm), perm=perm,
         kb=_extrema(ks_p, _SSUB_N), qb=_extrema(qk_p, _SQT),
         w=w.contiguous(), w0=w0.reshape(1).contiguous())
 
 
 def sorted_prune_keep(ops: SortedOperands) -> torch.Tensor:
     """[n_qtiles, n_sub] bool: the (query tile, row sub-slice) pairs the
-    kernel examines, by the band-overlap test it runs."""
+    band-overlap test keeps (the kernel visits exactly these, through
+    :func:`sorted_plan`)."""
     q_lo, q_hi = ops.qb[0][:, None], ops.qb[1][:, None]
     return (ops.kb[0] - ops.w0 <= q_hi) & (ops.kb[1] + ops.w0 >= q_lo)
+
+
+def sorted_plan(ops: SortedOperands, chunk: "int | None" = None) -> Plan:
+    """The sorted kernel's plan.  The rows are in band order, so both
+    ``kb[1] + w0`` and ``kb[0] - w0`` are non-decreasing (f32 rounding is
+    monotone) and the sub-slices :func:`sorted_prune_keep` keeps for a
+    tile are the one window that two searchsorted calls find."""
+    n_sub = ops.kb.shape[1]
+    n_qt = ops.qb.shape[1]
+    if chunk is None:
+        chunk = _chunk_size(n_qt, n_sub, 8 * 3 * _SQT, 4, 1 << 20)
+    s_lo = torch.searchsorted(ops.kb[1] + ops.w0, ops.qb[0].contiguous(),
+                              out_int32=True)
+    s_hi = torch.searchsorted(ops.kb[0] - ops.w0, ops.qb[1].contiguous(),
+                              out_int32=True, right=True)
+    return _chunk_plan(s_lo, s_hi, n_sub, chunk)
 
 
 def sorted_moments_plain(ops: SortedOperands) -> torch.Tensor:
@@ -431,11 +626,14 @@ def sorted_moments_plain(ops: SortedOperands) -> torch.Tensor:
 
 
 def _check_cuda(tensors: dict, dev: torch.device) -> None:
+    """Device, type (int32 for ``perm``, float32 otherwise) and
+    contiguity of a kernel's operands."""
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        want = torch.int32 if name == "perm" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -454,27 +652,42 @@ def _check_sorted_operands(ops: SortedOperands) -> None:
             or ops.kb.shape != (2, n_pad // _SSUB_N):
         raise ValueError(f"rows must be padded to a multiple of {_SSUB_N} "
                          "with matching vals, valid and kb")
+    if ops.rows.shape != (n_pad, record_floats(d)) or ops.perm.shape != (d,):
+        raise ValueError(f"rows must be [{n_pad}, {record_floats(d)}] and "
+                         f"perm [{d}]; got {tuple(ops.rows.shape)}, "
+                         f"{tuple(ops.perm.shape)}")
     if ops.qb.shape != (2, -(-q // _SQT)) or ops.w0.shape != (1,):
         raise ValueError("qb must be [2, ceil(Q / 128)] and w0 [1]")
 
 
-def launch_sorted(ops: SortedOperands) -> torch.Tensor:
-    """Launch ``csrc/sorted_moments.cu`` on the current stream: [Q, 3]
-    moments in band order (operands checked by the caller)."""
-    d, q = ops.q_t.shape
-    out = torch.empty((q, 3), dtype=torch.float32, device=ops.q_t.device)
-    fn = _cuda.load("sorted_moments").sorted_moments
-    p = ctypes.c_void_p
-    err = fn(p(ops.q_t.data_ptr()), p(ops.keys_t.data_ptr()),
-             p(ops.vals.data_ptr()), p(ops.valid.data_ptr()),
-             p(ops.kb.data_ptr()), p(ops.qb.data_ptr()), p(ops.w.data_ptr()),
-             p(ops.w0.data_ptr()), q, ops.keys_t.shape[1], d,
-             p(out.data_ptr()),
-             p(torch.cuda.current_stream(ops.q_t.device).cuda_stream))
+def _launch_band(name: str, q_t, rows, perm, w, plan: Plan) -> torch.Tensor:
+    """Both passes of ``csrc/<name>.cu`` (band_moments.cuh) on the current
+    stream: [Q, 3] moments of the tile-ordered queries ``q_t`` [D, Q]."""
+    d, q = q_t.shape
+    dev = q_t.device
+    partial = torch.empty((plan.max_chunks, 3, _SQT), dtype=torch.float64,
+                          device=dev)
+    out = torch.empty((q, 3), dtype=torch.float32, device=dev)
+    fn = getattr(_cuda.load(name), name)
+    p, grid = ctypes.c_void_p, ctypes.c_int(0)
+    err = fn(p(q_t.data_ptr()), p(rows.data_ptr()), p(perm.data_ptr()),
+             p(w.data_ptr()), p(plan.s_lo.data_ptr()), p(plan.s_hi.data_ptr()),
+             p(plan.off.data_ptr()), q, d, plan.s_lo.shape[0], plan.chunk,
+             p(partial.data_ptr()), p(out.data_ptr()),
+             p(torch.cuda.current_stream(dev).cuda_stream), ctypes.byref(grid))
     if err != 0:
-        raise RuntimeError(f"sorted_moments launch failed: CUDA error {err}")
-    _cuda.LAUNCHES["sorted_moments"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    _cuda.LAUNCHES[name] += 1
+    _cuda.GRID[name] = grid.value
     return out
+
+
+def launch_sorted(ops: SortedOperands) -> torch.Tensor:
+    """Plan, then launch ``csrc/sorted_moments.cu`` on the current
+    stream: [Q, 3] moments in band order (operands checked by the
+    caller)."""
+    return _launch_band("sorted_moments", ops.q_t, ops.rows, ops.perm, ops.w,
+                        sorted_plan(ops))
 
 
 def sorted_moments(ops: SortedOperands) -> torch.Tensor:
@@ -516,7 +729,8 @@ def sorted_query_operands(keys, values, valid, queries, half_widths
     qk = _index_dim(queries, sdim)
     qorder = torch.argsort(qk, stable=True)
     ops = _sorted_operands(keys[order], values[order], valid[order],
-                           sk[order], queries[qorder], qk[qorder], w, w0)
+                           sk[order], queries[qorder], qk[qorder], w, w0,
+                           (sdim,))
     return ops, qorder
 
 
@@ -577,7 +791,8 @@ def grouped_query_operands(keys, values, valid, queries, half_widths,
     order = torch.argsort(sk, stable=True)
     ops = _sorted_operands(keys[order], values[order], valid[order],
                            sk[order], queries.reshape(a * qa, d), q_band,
-                           w, w0)
+                           w, w0, (sdim,) if band_dim is None
+                           else (band_dim % d, sdim))
     return ops, qorder
 
 
@@ -609,9 +824,9 @@ def box_query_moments_grouped(keys: torch.Tensor,         # [N, D]
 
 class BruteOperands(NamedTuple):
     q_t: torch.Tensor     # [D, q_pad] f32 queries, padding +inf
-    keys_t: torch.Tensor  # [D, n_pad] f32 rows, padding 0
-    vals: torch.Tensor    # [n_pad] f32
-    valid: torch.Tensor   # [n_pad] f32 1 / 0 (0 on padding)
+    rows: torch.Tensor    # [n_pad, record_floats(D)] f32 row records (keys
+    #                       in key order, padding 0; v; valid, 0 on padding)
+    perm: torch.Tensor    # [D] i32 identity: record slot d holds key dim d
     w: torch.Tensor       # [D] f32
 
 
@@ -627,29 +842,32 @@ def brute_operands(keys, values, valid, queries, half_widths) -> BruteOperands:
     vals[:n] = values
     valid_f = torch.zeros(n_pad, dtype=torch.float32, device=dev)
     valid_f[:n] = valid.to(torch.float32)
+    perm = torch.arange(d, dtype=torch.int32, device=dev)
     # padded queries are +inf: they match nothing
     q_t = torch.full((d, q_pad), torch.inf, dtype=torch.float32, device=dev)
     q_t[:, :q] = queries.T
-    return BruteOperands(q_t=q_t, keys_t=keys_t, vals=vals, valid=valid_f,
+    return BruteOperands(q_t=q_t, rows=_band_rows(keys_t, vals, valid_f, perm),
+                         perm=perm,
                          w=half_widths.to(dev, torch.float32).contiguous())
 
 
+def brute_plan(n_qt: int, n_sub: int, dev: torch.device,
+               chunk: "int | None" = None) -> Plan:
+    """The brute kernel's plan: every tile's window is every sub-slice."""
+    if chunk is None:
+        chunk = _chunk_size(n_qt, n_sub, 8 * 3 * _SQT, 4, 1 << 20)
+    return _chunk_plan(torch.zeros(n_qt, dtype=torch.int32, device=dev),
+                       torch.full((n_qt,), n_sub, dtype=torch.int32,
+                                  device=dev), n_sub, chunk)
+
+
 def launch_brute(ops: BruteOperands) -> torch.Tensor:
-    """Launch ``csrc/box_moments.cu`` on the current stream: [q_pad, 3]
-    moments (operands checked by the caller)."""
-    d, q_pad = ops.q_t.shape
-    out = torch.empty((q_pad, 3), dtype=torch.float32, device=ops.q_t.device)
-    fn = _cuda.load("box_moments").box_moments
-    p = ctypes.c_void_p
-    err = fn(p(ops.q_t.data_ptr()), p(ops.keys_t.data_ptr()),
-             p(ops.vals.data_ptr()), p(ops.valid.data_ptr()),
-             p(ops.w.data_ptr()), q_pad, ops.keys_t.shape[1], d,
-             p(out.data_ptr()),
-             p(torch.cuda.current_stream(ops.q_t.device).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"box_moments launch failed: CUDA error {err}")
-    _cuda.LAUNCHES["box_moments"] += 1
-    return out
+    """Plan, then launch ``csrc/box_moments.cu`` on the current stream:
+    [q_pad, 3] moments (operands checked by the caller)."""
+    return _launch_band("box_moments", ops.q_t, ops.rows, ops.perm, ops.w,
+                        brute_plan(ops.q_t.shape[1] // _SQT,
+                                   ops.rows.shape[0] // _SSUB_N,
+                                   ops.q_t.device))
 
 
 def brute_moments_plain(keys, values, valid, queries, half_widths

@@ -54,6 +54,7 @@ def test_kernel_matches_plain(cuda, n, b, dup, off):
     got = K.query_peraction_prepared(prep, q)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["peraction_moments"] == before + 1
+    _check_grid("peraction_moments")
     ref = K.peraction_moments_plain(prep, q)
     assert ref[..., 0].sum() > 0
     torch.testing.assert_close(got[..., 0], ref[..., 0], rtol=0, atol=0)
@@ -116,6 +117,12 @@ def _check(got, ref):
                                atol=1e-3)
 
 
+def _check_grid(name):
+    """The launch reported its persistent grid: whole blocks per SM."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert _cuda.GRID[name] > 0 and _cuda.GRID[name] % sms == 0
+
+
 @pytest.mark.parametrize("n,q,d", [(700, 40, 21), (20000, 3000, 21),
                                    (5000, 129, 5), (300, 1, 32)])
 def test_sorted_kernel_matches_plain(cuda, n, q, d):
@@ -125,6 +132,7 @@ def test_sorted_kernel_matches_plain(cuda, n, q, d):
     got = K.box_query_moments_sorted(k, v, m, qq, w)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["sorted_moments"] == before + 1
+    _check_grid("sorted_moments")
     ops, qorder = K.sorted_query_operands(k, v, m, qq, w)
     plain = K.sorted_moments_plain(ops)
     _check(got, torch.empty_like(plain).index_copy_(0, qorder, plain))
@@ -151,6 +159,7 @@ def test_brute_kernel_matches_plain(cuda, n, q, d):
     got = K.box_query_moments_brute(k, v, m, qq, w)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["box_moments"] == before + 1
+    _check_grid("box_moments")
     _check(got, K.brute_moments_plain(k, v, m, qq, w))
 
 
@@ -173,3 +182,106 @@ def test_sorted_and_brute_reject_bad_operands(cuda):
                                   torch.ones(33, device=cuda))
     with pytest.raises(ValueError):
         K.box_query_moments_brute(k, v[:-1], m, qq, w)
+
+
+# ---------------------------------------------------------------------------
+# The chunked design: long windows, every key width, determinism, operands
+# ---------------------------------------------------------------------------
+
+
+def _lockstep_store(rng, n, q, d):
+    """Rows packed around one state and ``q`` identical queries at it: a
+    tile's window is every sub-slice, so it spreads over many chunks."""
+    keys = rng.normal(0, 0.3, (n, d)).astype(np.float32)
+    values = rng.normal(0, 1, n).astype(np.float32)
+    valid = rng.random(n) < 0.9
+    queries = np.zeros((q, d), np.float32)
+    w = np.full(d, 0.5, np.float32)
+    return keys, values, valid, queries, w
+
+
+@pytest.mark.parametrize("q", [1, 129, 4096])
+def test_sorted_kernel_long_window_over_few_tiles(cuda, q):
+    arrs = _lockstep_store(np.random.default_rng(q), 1 << 16, q, 21)
+    k, v, m, qq, w = (torch.as_tensor(a, device=cuda) for a in arrs)
+    ops, qorder = K.sorted_query_operands(k, v, m, qq, w)
+    plan = K.sorted_plan(ops)
+    per_tile = (plan.off[1:] - plan.off[:-1]).max()
+    assert int(per_tile) >= 16  # one tile over many chunks
+    got = K.sorted_moments(ops)
+    torch.cuda.synchronize()
+    ref = K.sorted_moments_plain(ops)
+    assert float(ref[:, 0].min()) > 1000
+    _check(got, ref)
+
+
+@pytest.mark.parametrize("d", [1, 5, 21, 32])
+def test_sorted_and_brute_kernels_every_key_width(cuda, d):
+    arrs = _flat_store(np.random.default_rng(100 + d), 6000, 500, d)
+    if d == 1:
+        arrs = arrs[:4] + (np.full(1, 0.2, np.float32),)
+    k, v, m, qq, w = (torch.as_tensor(a, device=cuda) for a in arrs)
+    ref = K.brute_moments_plain(k, v, m, qq, w)
+    _check(K.box_query_moments_sorted(k, v, m, qq, w), ref)
+    _check(K.box_query_moments_brute(k, v, m, qq, w), ref)
+
+
+def test_peraction_kernel_long_window_over_few_tiles(cuda):
+    rng = np.random.default_rng(5)
+    keys, values, valid, obs, w = _store(rng, 1 << 16, 129)
+    keys[:, :-1] = obs[0] + rng.normal(0, 0.1, (1 << 16, 20))
+    t = [torch.as_tensor(a, device=cuda) for a in (keys, values, valid, w)]
+    prep = K.prepare_peraction_store(t[0], t[1], t[2], t[3], num_actions=11)
+    q = torch.as_tensor(np.repeat(obs[:1], 129, 0), device=cuda)
+    got = K.query_peraction_prepared(prep, q)
+    torch.cuda.synchronize()
+    ref = K.peraction_moments_plain(prep, q)
+    assert float(ref[..., 0].sum(1).min()) > 1000
+    _check(got, ref)
+
+
+def test_kernels_are_deterministic(cuda):
+    arrs = _lockstep_store(np.random.default_rng(3), 1 << 15, 2000, 21)
+    k, v, m, qq, w = (torch.as_tensor(a, device=cuda) for a in arrs)
+    qq = qq + torch.randn(qq.shape, device=cuda) * 0.2
+    for fn in (K.box_query_moments_sorted, K.box_query_moments_brute):
+        a, b = fn(k, v, m, qq, w), fn(k, v, m, qq, w)
+        assert a[:, 0].sum() > 0 and torch.equal(a, b)
+    keys, values, valid, obs, w = _store(np.random.default_rng(4), 20000, 3000)
+    t = [torch.as_tensor(x, device=cuda) for x in (keys, values, valid, w)]
+    prep = K.prepare_peraction_store(t[0], t[1], t[2], t[3], num_actions=11)
+    q = torch.as_tensor(obs, device=cuda)
+    a = K.query_peraction_prepared(prep, q)
+    b = K.query_peraction_prepared(prep, q)
+    assert a[..., 0].sum() > 0 and torch.equal(a, b)
+
+
+def test_malformed_records_are_rejected(cuda):
+    arrs = _flat_store(np.random.default_rng(0), 500, 10, 21)
+    k, v, m, qq, w = (torch.as_tensor(a, device=cuda) for a in arrs)
+    ops, _ = K.sorted_query_operands(k, v, m, qq, w)
+    with pytest.raises(ValueError):
+        K.sorted_moments(ops._replace(rows=ops.rows[:, :22].contiguous()))
+    with pytest.raises(ValueError):
+        K.sorted_moments(ops._replace(rows=ops.rows[:-256].contiguous()))
+    with pytest.raises(TypeError):
+        K.sorted_moments(ops._replace(perm=ops.perm.long()))
+    with pytest.raises(ValueError):
+        K.sorted_moments(ops._replace(perm=ops.perm[:-1].contiguous()))
+    keys, values, valid, obs, w = _store(np.random.default_rng(0), 1000, 10)
+    t = [torch.as_tensor(x, device=cuda) for x in (keys, values, valid, w)]
+    prep = K.prepare_peraction_store(t[0], t[1], t[2], t[3], num_actions=11)
+    q = torch.as_tensor(obs, device=cuda)
+    with pytest.raises(ValueError):
+        K.query_peraction_prepared(prep._replace(
+            rows=prep.rows[:, :20].contiguous()), q)
+    with pytest.raises(TypeError):
+        K.query_peraction_prepared(prep._replace(perm=prep.perm.long()), q)
+    with pytest.raises(ValueError):
+        K.query_peraction_prepared(prep._replace(rows=prep.rows.T), q)
+    with pytest.raises(ValueError):
+        K.query_peraction_prepared(prep._replace(
+            piece_box=prep.piece_box[:-1].contiguous()), q)
+    with pytest.raises(TypeError):
+        K.query_peraction_prepared(prep._replace(
+            piece_mom=prep.piece_mom.double()), q)
