@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two main paths through the CUDA kernels hand-written
-for Hopper, at the sizes the JAX package's benchmark (``bench.py``) uses
-for them, and checks them:
+Drives the port's main paths through the CUDA kernels hand-written for
+Hopper, at the sizes the JAX package's benchmark (``bench.py``) and its
+closed-loop CLIs (``examples/run_improvement.py``,
+``examples/run_vehicle_life.py``) use for them, and checks them:
 
   device        torch / CUDA versions, the card's name and power limit
   build         nvcc builds every kernel from csrc/, one process per source
@@ -35,6 +36,33 @@ for them, and checks them:
                 version on that store, 4,096 of the fleet's last
                 observations; the gated driver runs 65,536 envs x 50 ticks
                 against it
+  empty store   peraction_moments on 2^17 rows of 1e9 keys, none valid
+                (the closed loop's rule arm): zeros, bit-equal to its
+                plain version and to a second launch
+  improvement   improvement.run_improvement at examples/run_improvement.py's
+                defaults: train 2,048 envs x 2,000 steps (store 2^17), then
+                the empty-store and the gated fleet, 1,024 envs x 400 ticks;
+                one sorted_moments launch per step, one peraction_moments
+                launch per tick; activation only in the gated arm; in
+                each call, the last sorted_moments launch and the
+                peraction_moments launch with the most matches (the
+                trained store and the fleet's queries) against their
+                plain versions; the gated arm 256 envs x 20 ticks, kernel
+                route == brute route
+  two session   run_two_session_improvement at 2,048 envs, store 2^17,
+                backfill budget 4,096, 1,008 steps a session (cut from
+                2,000); the evidence transfers and the activation is
+                retained; the same launches of each call against their
+                plain versions (session B's store rebuilt from text
+                included), and the deployment from B's reloaded store
+                kernel route == brute route; save -> restore -> 3 steps
+                bit-equal to the uninterrupted run, learner included
+  vehicle life  run_vehicle_life at WORKINGSET_r05.json's widths (65,536
+                envs, 50-tick chunks, a 2^18-row cache over a 4.5 M-row
+                history from the collector at 4,096 envs x 2,048 steps),
+                24 chunks (cut from 120) and one audit; then
+                peraction_moments against its plain version on a
+                sentinel-padded region cache
 
 Each rate comes from a run without probes; a replay of the same run then
 times each launch and reports its plan (kept and window sub-slices per
@@ -392,6 +420,386 @@ def snapshot(state):
     return type(state)(*(snapshot(x) for x in state))
 
 
+@contextlib.contextmanager
+def keep_loop_launches(sk, slot: dict):
+    """Wrap the kernels' launch functions so that ``slot[name]`` holds
+    [(arguments, output)] of the latest ``launch_sorted`` (its operands
+    hold the whole store, rebuilt every step) and of every
+    ``launch_peraction`` (small queries; a run's launches share its
+    prepared store): the operands the closed loop gave the kernels.
+    Launches still count."""
+    origs = {n: getattr(sk, n) for n in ("launch_sorted", "launch_peraction")}
+
+    def wrap(name, fn):
+        def keep(*args):
+            out = fn(*args)
+            kept = slot.setdefault(name, [])
+            if name == "launch_sorted":
+                kept.clear()
+            kept.append((args, out.clone()))
+            return out
+        return keep
+
+    for n, fn in origs.items():
+        setattr(sk, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in origs.items():
+            setattr(sk, n, fn)
+
+
+@contextlib.contextmanager
+def timed_calls(module, names, record: dict, _cuda, slot=None):
+    """Wrap ``module.<name>`` for each name: every call is synchronised and
+    timed on the host clock, and the kernel launches it made are kept:
+    ``record[name]`` gets (seconds, launches, kept, args) per call, with
+    ``kept`` what ``slot`` (of :func:`keep_loop_launches`) held of this
+    call's launches (empty without a slot) and ``args`` its positional
+    arguments (None without a slot)."""
+    origs = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = dict(_cuda.LAUNCHES)
+            if slot is not None:
+                slot.clear()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: v - before.get(k, 0)
+                        for k, v in _cuda.LAUNCHES.items()
+                        if v != before.get(k, 0)}
+            record.setdefault(name, []).append(
+                (dt, launches, dict(slot or {}),
+                 None if slot is None else args))
+            return out
+        return timed
+
+    for n, fn in origs.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in origs.items():
+            setattr(module, n, fn)
+
+
+def hold_kept_launches(sk, kept: dict, what: str) -> dict:
+    """A main-path call's kept launches against the kernels' plain
+    versions on the same operands: the last ``sorted_moments`` launch and
+    the ``peraction_moments`` launch with the most matches (a fleet may
+    have left the store's rows by its last tick).  {kernel: max |err|}.
+    A store with no live row must give zeros, bit-equal to its plain
+    version."""
+    errs = {}
+    if "launch_sorted" in kept:
+        ((ops,), out), = kept["launch_sorted"]
+        errs["sorted_moments"] = compare(out, sk.sorted_moments_plain(ops),
+                                         what + "_sorted")
+    if "launch_peraction" in kept:
+        launches = kept["launch_peraction"]
+        best = int(torch.stack([o[..., 0].sum() for _, o in launches])
+                   .argmax())
+        (prep, queries, _, _), out = launches[best]
+        ref = sk.peraction_moments_plain(prep, queries)
+        if not bool((prep.row_act >= 0).any()):
+            if not (torch.equal(out, ref) and not ref.any()):
+                fail(f"{what}: the empty store's moments are not all zero")
+            errs["peraction_moments"] = 0.0
+        else:
+            errs["peraction_moments"] = compare(out, ref, what + "_peraction")
+    return errs
+
+
+def gated_e2e(imp, cfg, store, what: str) -> dict:
+    """evaluate_gated on a closed-loop store, 256 envs x 20 ticks, kernel
+    route == brute route: equal integer metrics, reward per step within
+    rtol 1e-5."""
+    runs = [imp.evaluate_gated(cfg, store, n_envs=256, n_steps=20,
+                               seed=SEED + 100, use_kernel=k)
+            for k in (True, False)]
+    for key in runs[1]:
+        a, b = runs[0][key], runs[1][key]
+        same = (abs(a - b) <= 1e-5 * abs(b) if key == "mean_step_reward"
+                else a == b)
+        if not same:
+            fail(f"{what}: {key} {a} (kernel) != {b} (brute)")
+    return dict(envs=256, ticks=20,
+                activation_fraction=runs[0]["activation_fraction"],
+                episodes=runs[0]["episodes"])
+
+
+def improvement_phase(sk, _cuda, gpu: str) -> dict:
+    """The closed loop at examples/run_improvement.py's defaults: train
+    2,048 envs x 2,000 steps from an empty store, then the empty-store
+    rule fleet and the gated fleet, 1,024 envs x 400 ticks each.  The
+    kept launches of each call (:func:`hold_kept_launches`) are held
+    against the plain versions on their own operands (the trained
+    2^17-row store and the fleet's queries), and the gated arm's
+    deployment is run again on the kernel and the brute route.  Returns
+    {kernel: max |err|}."""
+    from dcarl_tpu_torch import improvement as imp
+
+    steps, envs, ticks = 2000, 1024, 400
+    record: dict = {}
+    slot: dict = {}
+    cfg = imp.demo_config()
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with keep_loop_launches(sk, slot), \
+            timed_calls(imp, ("train_store", "evaluate_gated"), record, _cuda,
+                        slot):
+        rep = imp.run_improvement(
+            cfg, batch_per_device=2048, train_steps=steps,
+            chunk=100, store_capacity_per_device=1 << 17, eval_envs=envs,
+            eval_steps=ticks, seed=SEED, use_kernel=True)
+    total_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    (train_s, train_l, train_k, _), = record["train_store"]
+    ((rule_s, rule_l, rule_k, _),
+     (gated_s, gated_l, gated_k, (_, store))) = record["evaluate_gated"]
+    if train_l != {"sorted_moments": steps}:
+        fail(f"improvement: train launches {train_l} != {steps} steps")
+    for arm, got in (("rule", rule_l), ("gated", gated_l)):
+        if got != {"peraction_moments": ticks}:
+            fail(f"improvement: {arm} arm launches {got} != {ticks} ticks")
+    hist = rep["train"]["history"]
+    if not all(np.isfinite(v).all() for v in hist.values()):
+        fail("improvement: training history not finite")
+    if rep["train"]["store_rows"] <= 0:
+        fail("improvement: the store stayed empty")
+    if rep["eval_rule"]["activation_fraction"] != 0.0:
+        fail("improvement: the empty-store fleet activated a candidate")
+    if not rep["eval_gated"]["activation_fraction"] > 0.0:
+        fail("improvement: the gated fleet never activated a candidate")
+    errs = {"train": hold_kept_launches(sk, train_k, "improvement_train"),
+            "rule": hold_kept_launches(sk, rule_k, "improvement_rule"),
+            "gated": hold_kept_launches(sk, gated_k, "improvement_gated")}
+    e2e = gated_e2e(imp, cfg, store, "improvement e2e")
+    imp_ = rep["improvement"]
+    emit("improvement", train_envs=2048, train_steps=steps, eval_envs=envs,
+         eval_ticks=ticks, seconds=total_s, train_seconds=train_s,
+         train_env_steps_per_s=2048 * steps / train_s,
+         eval_rule_seconds=rule_s, eval_gated_seconds=gated_s,
+         eval_rule_env_steps_per_s=envs * ticks / rule_s,
+         eval_gated_env_steps_per_s=envs * ticks / gated_s,
+         launches=launches, store_rows=rep["train"]["store_rows"],
+         final_rule_fraction=rep["train"]["final_rule_fraction"],
+         rule_fraction_by_chunk=[round(x, 4) for x in hist["rule_fraction"]],
+         rule_activation=rep["eval_rule"]["activation_fraction"],
+         gated_activation=rep["eval_gated"]["activation_fraction"],
+         reward_rate_ratio=imp_["reward_rate_ratio"],
+         collision_delta_per_kstep=imp_["collision_delta_per_kstep"],
+         pass_throughput_ratio=imp_["pass_throughput_ratio"],
+         rule_pass_rate=rep["eval_rule"]["pass_rate"],
+         gated_pass_rate=rep["eval_gated"]["pass_rate"],
+         rule_collision_rate=rep["eval_rule"]["collision_rate"],
+         gated_collision_rate=rep["eval_gated"]["collision_rate"],
+         kept_launch_vs_plain_max_abs_err=errs, e2e_kernel_eq_brute=e2e,
+         gpu=gpu)
+    return merge_errs(errs.values())
+
+
+def merge_errs(errs) -> dict:
+    """{kernel: max |err|} over several {kernel: max |err|}."""
+    out: dict = {}
+    for e in errs:
+        for k, v in e.items():
+            out[k] = max(out.get(k, 0.0), v)
+    return out
+
+
+def empty_store_phase(sk, queries, hw) -> None:
+    """The rule arm's store: 2^17 rows of 1e9 keys, none valid."""
+    n = 1 << 17
+    dev = queries.device
+    prep = sk.prepare_peraction_store(
+        torch.full((n, 21), 1e9, device=dev), torch.zeros(n, device=dev),
+        torch.zeros(n, dtype=torch.bool, device=dev), hw, 11)
+    got = sk.query_peraction_prepared(prep, queries)
+    again = sk.query_peraction_prepared(prep, queries)
+    ref = sk.peraction_moments_plain(prep, queries)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail("empty store: two peraction_moments launches differ")
+    if not (torch.equal(got, ref) and not ref.any()):
+        fail("empty store: the kernel's moments are not all zero")
+    emit("empty_store", rows=n, queries=queries.shape[0],
+         max_abs_err=float((got - ref).abs().max()), bit_equal=True)
+
+
+def two_session_phase(root: str, sk, _cuda, gpu: str) -> dict:
+    """Session A trains and spools, a fresh session B reloads its text
+    history and deploys from it; then save -> restore -> continue of 3
+    steps against the uninterrupted run.  The kept launches of each
+    training session and each deployment are held against the plain
+    versions on their own operands (session B's store is the one
+    rebuilt from text), and the deployment from session B's reloaded
+    store is run again on the kernel and the brute route.  Returns
+    {kernel: max |err|}."""
+    import shutil
+
+    from dcarl_tpu_torch import improvement as imp
+    from dcarl_tpu_torch.session import TrainSession
+    from dcarl_tpu_torch.utils import checkpoint as ckpt
+
+    shutil.rmtree(root, ignore_errors=True)
+    envs, cap, budget, steps = 2048, 1 << 17, 2 * 2048, 1008
+    record: dict = {}
+    slot: dict = {}
+    t0 = time.perf_counter()
+    with timed_calls(ckpt, ("format_rows",), record, _cuda), \
+            keep_loop_launches(sk, slot), \
+            timed_calls(imp, ("train_store_sessioned", "evaluate_gated"),
+                        record, _cuda, slot):
+        rep = imp.run_two_session_improvement(
+            os.path.join(root, "two_session"), batch_per_device=envs,
+            train_steps=steps, chunk=100, store_capacity_per_device=cap,
+            eval_envs=1024, eval_steps=400, seed=SEED, use_kernel=True,
+            backfill_budget_per_step=budget)
+    total_s = time.perf_counter() - t0
+    info_a = rep["session_a"]["info"]
+    probe = rep["session_b_imported"]["info"]
+    if not (rep["evidence_transferred"] and rep["activation_retained"]):
+        fail(f"two session: evidence_transferred "
+             f"{rep['evidence_transferred']}, activation_retained "
+             f"{rep['activation_retained']}")
+    # the reload takes the newest `cap` rows of A's history; B's own
+    # history holds only what B adds (nothing before it trains)
+    if probe["imported_rows"] != min(info_a["history_rows"], cap) \
+            or probe["history_rows"] != 0:
+        fail(f"two session: imported {probe['imported_rows']} rows of a "
+             f"{info_a['history_rows']}-row history")
+    write_s = sum(dt for dt, *_ in record["format_rows"])
+    labels = {"train_store_sessioned": ("train_a", "train_b_probe",
+                                        "train_b"),
+              "evaluate_gated": ("eval_rule", "eval_a", "eval_b_imported",
+                                 "eval_b")}
+    errs = {label: hold_kept_launches(sk, kept, "two_session_" + label)
+            for name, names in labels.items()
+            for label, (_, _, kept, _) in zip(names, record[name])}
+    store_b0 = record["evaluate_gated"][2][3][1]
+    e2e = gated_e2e(imp, imp.demo_config(), store_b0,
+                    "two session e2e (session B's reloaded store)")
+
+    # save -> restore -> continue, bit for bit, on the card
+    kw = dict(batch_per_device=envs, store_capacity_per_device=cap,
+              replay_capacity_per_device=cap, use_kernel=True,
+              backfill_budget_per_step=budget)
+    cfg = imp.demo_config()
+    sdir = os.path.join(root, "resume")
+    sess = TrainSession(sdir, cfg, **kw)
+    run3 = sess.run_factory(3)
+    state, _ = sess.init_or_resume(seed=SEED)
+    state, _ = run3(state, torch.Generator(device="cuda").manual_seed(1))
+    t1 = time.perf_counter()
+    sess.save(state, step=3)
+    save_s = time.perf_counter() - t1
+    cont, _ = run3(state, torch.Generator(device="cuda").manual_seed(2))
+    sess2 = TrainSession(sdir, cfg, **kw)
+    t1 = time.perf_counter()
+    restored, step = sess2.init_or_resume(seed=SEED + 1)
+    restore_s = time.perf_counter() - t1
+    resumed, _ = sess2.run_factory(3)(
+        restored, torch.Generator(device="cuda").manual_seed(2))
+    a = ckpt.flatten({"state": cont, "learner": sess.learner.state_dict()})
+    b = ckpt.flatten({"state": resumed, "learner": sess2.learner.state_dict()})
+    differ = [k for k in a if isinstance(a[k], torch.Tensor)
+              and not torch.equal(a[k], b[k])]
+    if step != 3 or a.keys() != b.keys() or differ:
+        fail(f"two session: resumed run differs from the uninterrupted one "
+             f"in {differ[:5]}")
+    emit("two_session", envs=envs, store_capacity=cap, train_steps=steps,
+         seconds=total_s,
+         train_seconds=[round(dt, 3) for dt, *_ in
+                        record["train_store_sessioned"]],
+         eval_seconds=[round(dt, 3) for dt, *_ in record["evaluate_gated"]],
+         history_rows_a=info_a["history_rows"],
+         imported_rows=probe["imported_rows"],
+         text_write_seconds=write_s,
+         activation_rule=rep["eval_rule"]["activation_fraction"],
+         activation_a=rep["session_a"]["eval"]["activation_fraction"],
+         activation_b_imported=rep["session_b_imported"]["eval"]
+         ["activation_fraction"],
+         activation_b_final=rep["session_b_final"]["eval"]
+         ["activation_fraction"],
+         improvement_a=rep["improvement_a"],
+         improvement_b=rep["improvement_b"],
+         checkpoint_save_seconds=save_s,
+         checkpoint_restore_seconds=restore_s,
+         resume_bit_equal=True, kept_launch_vs_plain_max_abs_err=errs,
+         e2e_kernel_eq_brute=e2e, gpu=gpu)
+    shutil.rmtree(root, ignore_errors=True)
+    return merge_errs(errs.values())
+
+
+def vehicle_life_phase(sk, _cuda, hw, gpu: str) -> None:
+    """The working set at WORKINGSET_r05.json's widths (chunks cut to 24),
+    then the per-action kernel against its plain version on a
+    sentinel-padded region cache of the same history (its error, on sums
+    of squared episode returns, is reported in this phase's line only)."""
+    from dcarl_tpu_torch import workingset as ws
+
+    n_envs, chunk, n_chunks, audits = 65536, 50, 24, 1
+    t0 = time.perf_counter()
+    lk, lv = ws.collect_local_records(4096, 2048, seed=SEED + 7,
+                                      max_rows=10000)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    if len(lk) != 10000 or not np.isfinite(lk).all():
+        fail(f"vehicle life: the collector gave {len(lk)} rows")
+    _cuda.LAUNCHES.clear()
+    rep = ws.run_vehicle_life(
+        n_envs=n_envs, chunk_steps=chunk, n_chunks=n_chunks,
+        local_rows=10000, n_offsets=450, offset_spacing=8.0,
+        cache_capacity=1 << 18, region_radius=25.0, recenter_margin=10.0,
+        drift_per_chunk=2.0, checkpoints=audits, checkpoint_queries=256,
+        use_kernel=True, seed=SEED, history=(lk, lv))
+    launches = dict(_cuda.LAUNCHES)
+    want = (n_chunks + 1) * chunk + 3 * audits     # + warm-up chunk
+    if launches != {"peraction_moments": want}:
+        fail(f"vehicle life: launches {launches} != {want}")
+    if rep["recenters"] < 1 or len(rep["checkpoints"]) != audits:
+        fail(f"vehicle life: {rep['recenters']} re-centers, "
+             f"{len(rep['checkpoints'])} audits")
+    ck = rep["checkpoints"][0]
+    if ck["matched_counts_total"] <= 0:
+        fail("vehicle life: the audit matched nothing")
+
+    # the kernel on a sentinel-padded region cache (RegionCache.build's
+    # 1e9 keys past the region rows), probes at region rows
+    hk, hv = ws.build_life_history(lk, lv, np.arange(450) * 8.0)
+    center = float(np.median(lk[:, 0])) + 400.0
+    keys, vals, valid, n, idx = ws.RegionCache(
+        hk, hv, hw.cpu().numpy(), 1 << 18).build(center, 25.0)
+    rng = np.random.default_rng(SEED)
+    probes = hk[idx[rng.integers(0, n, 4096)], :-1]
+    t = [torch.as_tensor(a, device="cuda") for a in (keys, vals, valid)]
+    q = torch.as_tensor(probes, device="cuda").contiguous()
+    prep = sk.prepare_peraction_store(t[0], t[1], t[2], hw, 11)
+    got = sk.query_peraction_prepared(prep, q)
+    torch.cuda.synchronize()
+    ref = sk.peraction_moments_plain(prep, q)
+    err = compare(got, ref, "sentinel_region_cache")
+    rel = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+    emit("vehicle_life", envs=n_envs, chunk_ticks=chunk, chunks=n_chunks,
+         history_rows=rep["history_rows"], cache_capacity=1 << 18,
+         collect_seconds=collect_s,
+         collect_env_steps_per_s=4096 * 2048 / collect_s,
+         wall_seconds=rep["wall_seconds"],
+         audit_seconds=rep["checkpoint_seconds"],
+         sustained_env_steps_per_s=rep["sustained_env_steps_per_s"],
+         recenters=rep["recenters"],
+         recenter_prep_seconds_total=rep["recenter_prep_seconds_total"],
+         activation_fraction_mean=rep["activation_fraction_mean"],
+         launches=launches, audit=ck, sentinel_cache_rows=int(n),
+         sentinel_cache_max_abs_err=err, sentinel_cache_max_rel_err=rel,
+         gpu=gpu)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -616,6 +1024,7 @@ def main() -> int:
         fail("e2e: rewards differ between kernel and reference routes")
     emit("e2e_check", envs=256, ticks=10, gate_share=float(
         (outs[0][5] > 0).float().mean()), integer_outputs_equal=True)
+    empty_store_phase(sk, q_sub, hw)
     del prep, s_keys, s_vals, s_valid, obs_all, obs_ticks
     torch.cuda.empty_cache()
 
@@ -836,6 +1245,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     ts_launches, ts_summ, ts_gate = gated_path(
         "gated_on_trainer_store", f_keys, f_vals, f_valid, SEED + 9)
+    del f_keys, f_vals, f_valid
+    torch.cuda.empty_cache()
+
+    # --- the closed loop: train -> deploy, persist -> reload, vehicle life
+    loop_errs = merge_errs([
+        improvement_phase(sk, _cuda, gpu),
+        two_session_phase(os.path.join(here, "build", "chip_smoke_sessions"),
+                          sk, _cuda, gpu)])
+    for kernel, err in loop_errs.items():
+        note_err(kernel, err)
+    vehicle_life_phase(sk, _cuda, hw, gpu)
 
     emit("done", seconds=time.perf_counter() - t_start,
          gated_on_trainer_store_gate_share=ts_gate)

@@ -20,8 +20,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from dcarl_tpu_torch.config import StoreConfig
-from dcarl_tpu_torch.core.store import (ConfidenceStore, box_query_stats,
-                                        store_insert)
+from dcarl_tpu_torch.core.store import (ConfidenceStore, _raw_moments,
+                                        box_query_stats, moments_to_stats,
+                                        store_insert, store_valid)
 
 
 def state_with_action(obs: torch.Tensor, action) -> torch.Tensor:
@@ -52,10 +53,17 @@ def all_action_stats(store: ConfidenceStore, obs: torch.Tensor,
                      half_widths: torch.Tensor, num_actions: int,
                      use_kernel: Optional[bool] = None) -> ActionStats:
     """One store query for every action of every env ([B, A] stats)."""
-    keys = candidate_keys(obs, num_actions)          # [B, A, D]
-    stats = box_query_stats(store, keys.reshape(-1, keys.shape[-1]),
-                            half_widths, use_kernel=use_kernel)
-    shape = keys.shape[:-1]
+    if use_kernel is None:
+        use_kernel = obs.device.type == "cuda"
+    if use_kernel:
+        keys = candidate_keys(obs, num_actions)      # [B, A, D]
+        stats = box_query_stats(store, keys.reshape(-1, keys.shape[-1]),
+                                half_widths, use_kernel=True)
+    else:
+        stats = moments_to_stats(_raw_moments(
+            store.keys, store.values, store_valid(store),
+            obs.reshape(-1, obs.shape[-1]), half_widths, num_actions))
+    shape = (*obs.shape[:-1], num_actions)
     return ActionStats(*(f.reshape(shape) for f in stats))
 
 

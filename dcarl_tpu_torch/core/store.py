@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 # Half-widths of the 21-D (20-D obs + action) query box, from
@@ -143,7 +144,8 @@ class QueryStats(NamedTuple):
 
 def _raw_moments(keys: torch.Tensor, values: torch.Tensor,
                  valid: torch.Tensor, queries: torch.Tensor,
-                 half_widths: torch.Tensor) -> torch.Tensor:
+                 half_widths: torch.Tensor,
+                 num_actions: Optional[int] = None) -> torch.Tensor:
     """[Q, 3] f32 moments (count, sum, sumsq) of the values whose keys
     contain each query.
 
@@ -152,11 +154,22 @@ def _raw_moments(keys: torch.Tensor, values: torch.Tensor,
     the reduction is one ``mask @ [1, v, v^2]`` product in the inputs'
     dtype, rounded to f32 at the end as the JAX oracle does.  With TF32
     off (``dcarl_tpu_torch.disable_tf32``) the product runs in full
-    precision on the card."""
+    precision on the card.
+
+    With ``num_actions``, ``queries`` are [B, D-1] observations and the
+    result is [B * A, 3], the moments of the candidate keys ``obs || a``
+    for a = 0..A-1 (``rls.candidate_keys`` order): the obs dims are
+    tested once per observation, which every candidate shares."""
+    d_obs = keys.shape[1] if num_actions is None else keys.shape[1] - 1
     mask = valid[None, :].expand(queries.shape[0], -1).clone()
-    for d in range(keys.shape[1]):
+    for d in range(d_obs):
         mask &= torch.abs(keys[None, :, d] - queries[:, None, d]) \
             <= half_widths[d]
+    if num_actions is not None:
+        cand = torch.arange(num_actions, dtype=queries.dtype,
+                            device=queries.device)
+        act = torch.abs(keys[None, :, -1] - cand[:, None]) <= half_widths[-1]
+        mask = (mask[:, None, :] & act[None]).reshape(-1, keys.shape[0])
     feats = torch.stack([torch.ones_like(values), values, values * values],
                         dim=1)                               # [N, 3]
     return (mask.to(values.dtype) @ feats).to(torch.float32)
@@ -182,6 +195,23 @@ def store_valid(store: ConfidenceStore) -> torch.Tensor:
     """[N] bool: rows below ``size`` (the rows a query may match)."""
     n = store.keys.shape[0]
     return torch.arange(n, device=store.keys.device) < store.size
+
+
+def active_region_mask(keys, half_widths, region_dims, center, radius):
+    """[N] bool numpy mask of the rows that can affect ANY query inside
+    the operating region ``|q[dim] - center| <= radius`` (per region dim):
+    the vehicle-life working set's host-side selection
+    (``workingset.py``).  A row matches a query only if ``|key_d - q_d|
+    <= w_d``, so a row with ``|key_d - center_d| > radius_d + w_d`` on
+    some region dim matches no in-region query, and dropping it is
+    exact.  ``keys`` [N, D] and ``half_widths`` [D] are host arrays."""
+    keys = np.asarray(keys)
+    half_widths = np.asarray(half_widths)
+    mask = np.ones(keys.shape[0], bool)
+    for i, dim in enumerate(region_dims):
+        reach = float(radius[i]) + float(half_widths[dim])
+        mask &= np.abs(keys[:, dim] - float(center[i])) <= reach
+    return mask
 
 
 def box_query_stats(store: ConfidenceStore, queries: torch.Tensor,

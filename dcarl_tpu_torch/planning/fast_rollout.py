@@ -582,19 +582,24 @@ def _plan_tick(state: FastEnvState, idx, tab: RefTables, wcfg: WerlingConfig,
     return _Tick(obs, lat, rule_index)
 
 
-def _follow(tick: _Tick, index: torch.Tensor, n_v: int, state: FastEnvState,
-            generator, sa, env_cfg: EnvConfig):
-    """trajectory_by_index (0 = brake: the min-cost path at zero speed),
-    then control and the env step."""
-    lat, obs = tick.lat, tick.obs
+def _pick_path(lat: FastLattice, index: torch.Tensor, n_v: int):
+    """trajectory_by_index, lane-major: (x [T, B], y [T, B], speed_end
+    [B]) of candidate ``index`` (0 = brake: the min-cost path at zero
+    speed), gathered by index."""
     brake_path = torch.argmin(lat.cf, dim=0)
     p_sel = torch.where(index == 0, brake_path, index - 1)
-    traj_x = lat.x.gather(0, p_sel[None, None].expand(1, *lat.x.shape[1:]))[0]
-    traj_y = lat.y.gather(0, p_sel[None, None].expand(1, *lat.y.shape[1:]))[0]
+    tx = lat.x.gather(0, p_sel[None, None].expand(1, *lat.x.shape[1:]))[0]
+    ty = lat.y.gather(0, p_sel[None, None].expand(1, *lat.y.shape[1:]))[0]
     # path p runs at terminal speed index p % n_v
-    speed_end = lat.s_d_end.gather(0, (p_sel % n_v)[None])[0]
-    speed_end = torch.where(index == 0, 0.0, speed_end)
+    se = lat.s_d_end.gather(0, (p_sel % n_v)[None])[0]
+    return tx, ty, torch.where(index == 0, 0.0, se)
 
+
+def _follow(tick: _Tick, index: torch.Tensor, n_v: int, state: FastEnvState,
+            generator, sa, env_cfg: EnvConfig):
+    """trajectory_by_index, then control and the env step."""
+    obs = tick.obs
+    traj_x, traj_y, speed_end = _pick_path(tick.lat, index, n_v)
     ego_v = torch.sqrt(obs[2] ** 2 + obs[3] ** 2)
     acc, steer = _control(obs[0], obs[1], obs[4], ego_v, traj_x, traj_y,
                           speed_end)
@@ -643,6 +648,117 @@ def make_rule_driver_fast(sc: Scenario,
                                           generator, sa, env_cfg)
             outs.append((reward, done, state.passed, state.collided))
         return state, tuple(torch.stack(o) for o in zip(*outs))
+
+    return init_fn, run_fn
+
+
+class FastCollectorCarry(NamedTuple):
+    env: FastEnvState
+    triggered: torch.Tensor         # [B] bool
+    locked_x: torch.Tensor          # [T, B]
+    locked_y: torch.Tensor          # [T, B]
+    locked_speed_end: torch.Tensor  # [B]
+    recorded_state: torch.Tensor    # [20, B]
+    used_action: torch.Tensor       # [B] i32
+
+
+class FastStepRecord(NamedTuple):
+    done: torch.Tensor              # [B]
+    collided: torch.Tensor
+    passed: torch.Tensor
+    recorded_state: torch.Tensor    # [20, B]
+    used_action: torch.Tensor       # [B] i32
+    episode_return: torch.Tensor
+    reward: torch.Tensor
+    rule_index: torch.Tensor        # [B] i64
+
+
+def make_collector_fast(sc: Scenario,
+                        env_cfg: EnvConfig = EnvConfig(),
+                        wcfg: WerlingConfig = WerlingConfig(),
+                        dtype: torch.dtype = torch.float32,
+                        trigger_y: float = 90.0,
+                        device: "str | torch.device | None" = None):
+    """Lane-major value collector (the dqn_value_collect.py loop): each
+    env drives the rule until its ego passes ``trigger_y``, then locks the
+    round-robin candidate ``used_action`` (and the observation it locked
+    at) and follows that trajectory to the episode's end; a finished
+    episode moves the env to the next candidate.
+
+    Returns (init_fn, run_fn):
+      init_fn(batch, generator)          -> FastCollectorCarry
+      run_fn(carry, n_steps, generator)  -> (carry, FastStepRecord), each
+                                            record field [S, ...]
+    ``device=None`` runs on ``cuda`` (which must exist)."""
+    device, sa, idx, tab, env_init = _setup(sc, env_cfg, dtype, device)
+    n_obj = (env_cfg.state_dim - 5) // 5
+    n_v = len(wcfg.target_speeds)
+    n_actions = wcfg.num_paths + 1
+    n_t = wcfg.n_time_steps
+    npdt = _NP_DTYPE[dtype]
+    y_trigger = float(npdt(trigger_y))
+
+    def init_fn(batch: int, generator: torch.Generator) -> FastCollectorCarry:
+        def z(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        return FastCollectorCarry(
+            env=env_init(batch, generator),
+            triggered=z(batch, dt=torch.bool),
+            locked_x=z(n_t, batch), locked_y=z(n_t, batch),
+            locked_speed_end=z(batch),
+            recorded_state=z(env_cfg.state_dim, batch),
+            used_action=z(batch, dt=torch.int32))
+
+    def one_step(carry: FastCollectorCarry, generator: torch.Generator):
+        state = carry.env
+        tick = _plan_tick(state, idx, tab, wcfg, n_obj)
+        obs, lat = tick.obs, tick.lat
+
+        # trigger: lock the round-robin candidate once y < trigger_y
+        trigger_now = (~carry.triggered) & (obs[1] < y_trigger)
+        hrl_x, hrl_y, hrl_se = _pick_path(lat, carry.used_action.to(torch.int64),
+                                          n_v)
+        rule_x, rule_y, rule_se = _pick_path(lat, tick.rule_index, n_v)
+
+        locked_x = torch.where(trigger_now[None, :], hrl_x, carry.locked_x)
+        locked_y = torch.where(trigger_now[None, :], hrl_y, carry.locked_y)
+        locked_se = torch.where(trigger_now, hrl_se, carry.locked_speed_end)
+        recorded_state = torch.where(trigger_now[None, :], obs,
+                                     carry.recorded_state)
+        triggered = carry.triggered | trigger_now
+
+        follow_x = torch.where(triggered[None, :], locked_x, rule_x)
+        follow_y = torch.where(triggered[None, :], locked_y, rule_y)
+        follow_se = torch.where(triggered, locked_se, rule_se)
+
+        ego_v = torch.sqrt(obs[2] ** 2 + obs[3] ** 2)
+        acc, steer = _control(obs[0], obs[1], obs[4], ego_v, follow_x,
+                              follow_y, follow_se)
+        episode_return_before = state.episode_return
+        state, reward, done = _step_env_soa(state, acc, steer, generator, sa,
+                                            env_cfg)
+
+        record = FastStepRecord(
+            done=done, collided=state.collided, passed=state.passed,
+            recorded_state=recorded_state, used_action=carry.used_action,
+            episode_return=episode_return_before + reward, reward=reward,
+            rule_index=tick.rule_index)
+        used_action = torch.where(done, (carry.used_action + 1) % n_actions,
+                                  carry.used_action).to(torch.int32)
+        triggered = torch.where(done, False, triggered)
+        return FastCollectorCarry(
+            env=state, triggered=triggered, locked_x=locked_x,
+            locked_y=locked_y, locked_speed_end=locked_se,
+            recorded_state=recorded_state, used_action=used_action), record
+
+    def run_fn(carry: FastCollectorCarry, n_steps: int,
+               generator: torch.Generator):
+        recs = []
+        for _ in range(n_steps):
+            carry, rec = one_step(carry, generator)
+            recs.append(rec)
+        return carry, FastStepRecord(*(torch.stack(f) for f in zip(*recs)))
 
     return init_fn, run_fn
 
@@ -727,10 +843,8 @@ def make_gated_driver_fast(sc: Scenario,
                 moments = store_kernels.query_peraction_prepared(
                     prep, obs_bf.to(torch.float32).contiguous()).reshape(-1, 3)
             else:
-                flat_q = RLSmod.candidate_keys(obs_bf, num_actions).reshape(
-                    -1, env_cfg.state_dim + 1)
-                moments = _raw_moments(keys_w, vals_w, store_valid, flat_q,
-                                       half_widths)
+                moments = _raw_moments(keys_w, vals_w, store_valid, obs_bf,
+                                       half_widths, num_actions)
             qs = moments_to_stats(moments)
             stats = RLSmod.ActionStats(
                 count=qs.count.reshape(b, num_actions).to(dtype),

@@ -40,6 +40,10 @@ def test_port_import_pulls_in_no_jax():
         "import dcarl_tpu_torch.ops.store_kernels\n"
         "import dcarl_tpu_torch.train_fast\n"
         "import dcarl_tpu_torch.models.dqn\n"
+        "import dcarl_tpu_torch.improvement\n"
+        "import dcarl_tpu_torch.session\n"
+        "import dcarl_tpu_torch.workingset\n"
+        "import dcarl_tpu_torch.utils.checkpoint\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'dcarl_tpu')]\n"
         "assert not bad, bad\n")

@@ -61,6 +61,55 @@ def test_kernel_matches_plain(cuda, n, b, dup, off):
     torch.testing.assert_close(got[..., 1:], ref[..., 1:], rtol=1e-4, atol=1e-3)
 
 
+def test_kernel_on_a_store_with_no_live_row(cuda):
+    """The empty-store rule arm of improvement.evaluate_gated: 1e9 keys,
+    none valid.  Every window is empty; the launch still runs and writes
+    zeros, bit-equal to the plain version and to a second launch."""
+    n = 1 << 14
+    w = torch.as_tensor(DRIVING_HALF_WIDTHS, dtype=torch.float32, device=cuda)
+    prep = K.prepare_peraction_store(
+        torch.full((n, 21), 1e9, device=cuda), torch.zeros(n, device=cuda),
+        torch.zeros(n, dtype=torch.bool, device=cuda), w, num_actions=11)
+    q = torch.randn((300, 20), device=cuda) * 5 + 100
+    before = _cuda.LAUNCHES["peraction_moments"]
+    got = K.query_peraction_prepared(prep, q)
+    again = K.query_peraction_prepared(prep, q)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["peraction_moments"] == before + 2
+    ref = K.peraction_moments_plain(prep, q)
+    assert not ref.any()
+    assert torch.equal(got, ref) and torch.equal(again, got)
+
+
+def test_kernel_on_a_sentinel_padded_region_cache(cuda):
+    """A RegionCache.build store: the region's history rows, then 1e9 keys
+    marked invalid up to the capacity; probes at region rows that lie
+    inside the region (the cache is exact for in-region queries only)."""
+    from dcarl_tpu_torch.workingset import RegionCache, build_life_history
+
+    rng = np.random.default_rng(9)
+    keys, values, _, _, w = _store(rng, 2000, 1)
+    keys[:, 0] = 242.0 + rng.normal(0, 1.0, 2000)
+    hk, hv = build_life_history(keys, values, np.arange(40) * 8.0)
+    ck, cv, cvalid, n, idx = RegionCache(hk, hv, w, 1 << 15).build(400.0,
+                                                                   25.0)
+    assert 0 < n < (1 << 15) and not cvalid[n:].any()
+    t = [torch.as_tensor(a, device=cuda) for a in (ck, cv, cvalid, w)]
+    prep = K.prepare_peraction_store(t[0], t[1], t[2], t[3], num_actions=11)
+    probes = hk[idx[rng.integers(0, n, 500)], :-1]
+    probes = probes[np.abs(probes[:, 0] - 400.0) <= 25.0]
+    q = torch.as_tensor(probes, device=cuda)
+    got = K.query_peraction_prepared(prep, q.contiguous())
+    torch.cuda.synchronize()
+    _check(got, K.peraction_moments_plain(prep, q))
+    # counts equal those against the whole history (no in-region row lost)
+    full = K.box_query_moments_peraction(
+        torch.as_tensor(hk, device=cuda), torch.as_tensor(hv, device=cuda),
+        torch.ones(len(hk), dtype=torch.bool, device=cuda), q.contiguous(),
+        t[3], num_actions=11)
+    assert torch.equal(got[..., 0], full[..., 0])
+
+
 def test_kernel_rejects_bad_operands(cuda):
     keys, values, valid, obs, w = _store(np.random.default_rng(0), 1000, 10)
     t = [torch.as_tensor(a, device=cuda) for a in (keys, values, valid, w)]
