@@ -63,6 +63,18 @@ closed-loop CLIs (``examples/run_improvement.py``,
                 24 chunks (cut from 120) and one audit; then
                 peraction_moments against its plain version on a
                 sentinel-padded region cache
+  trustset      models/segment.make_trustset_trainer at the JAX defaults
+                (64 envs, batch 32, replay and trust set 2^14) for 1,000
+                steps: one sorted_moments launch (D = 4) per trained step,
+                none in warm-up, 2^14 trust-set rows; the launch with the
+                most matches against its plain version and again
+                bit-equal; 20 steps from a step-600 snapshot, kernel route
+                == brute route; the trained set served to 65,536 rule-fleet
+                observations (720,896 queries a launch) through act_ts,
+                act_ts_explore and hybrid_act, each launch timed, 4,096 of
+                its queries against the plain version; the golden
+                confidence core on a 20,000-row stream, the card against
+                the CPU, and running_update_batch over 4,096 streams
 
 Each rate comes from a run without probes; a replay of the same run then
 times each launch and reports its plan (kept and window sub-slices per
@@ -414,17 +426,20 @@ def brute_work(n_rows: int, n_q: int, d: int, matches: float):
 
 
 def snapshot(state):
-    """A copy of a trainer state (every tensor cloned)."""
+    """A copy of a trainer state (every tensor cloned; host flags kept)."""
     if isinstance(state, torch.Tensor):
         return state.clone()
-    return type(state)(*(snapshot(x) for x in state))
+    if isinstance(state, tuple):
+        return type(state)(*(snapshot(x) for x in state))
+    return state
 
 
 @contextlib.contextmanager
-def keep_loop_launches(sk, slot: dict):
+def keep_loop_launches(sk, slot: dict, every_sorted: bool = False):
     """Wrap the kernels' launch functions so that ``slot[name]`` holds
     [(arguments, output)] of the latest ``launch_sorted`` (its operands
-    hold the whole store, rebuilt every step) and of every
+    hold the whole store, rebuilt every step; of every one with
+    ``every_sorted``, for a store small enough) and of every
     ``launch_peraction`` (small queries; a run's launches share its
     prepared store): the operands the closed loop gave the kernels.
     Launches still count."""
@@ -434,7 +449,7 @@ def keep_loop_launches(sk, slot: dict):
         def keep(*args):
             out = fn(*args)
             kept = slot.setdefault(name, [])
-            if name == "launch_sorted":
+            if name == "launch_sorted" and not every_sorted:
                 kept.clear()
             kept.append((args, out.clone()))
             return out
@@ -798,6 +813,289 @@ def vehicle_life_phase(sk, _cuda, hw, gpu: str) -> None:
          launches=launches, audit=ck, sentinel_cache_rows=int(n),
          sentinel_cache_max_abs_err=err, sentinel_cache_max_rel_err=rel,
          gpu=gpu)
+
+
+def trustset_phase(sk, _cuda, gpu: str) -> tuple:
+    """The trust-set DQN trainer at the JAX package's defaults (64 envs,
+    ``DQNConfig()``, replay and trust set 2^14, ``SegmentConfig()``) for
+    1,000 steps, one ``sorted_moments`` launch (D = 4) per trained step
+    and none in warm-up; the rate from steps 600-1,000 rerun without
+    probes from a step-600 snapshot; the launch with the most matches
+    against the plain version, and again bit-equal; 20 steps from that
+    snapshot on the kernel and the brute route with the same draws; the
+    trained trust set served to 65,536 of the rule driver's observations
+    through ``act_ts``, ``act_ts_explore`` and ``hybrid_act``; the golden
+    confidence core on a 20,000-row stream on the card against the CPU,
+    and ``running_update_batch`` over 4,096 streams.  Returns the max
+    |err| of the kept launch and of the fleet's launch."""
+    from dcarl_tpu_torch.config import EnvConfig
+    from dcarl_tpu_torch.core import confidence as C
+    from dcarl_tpu_torch.core.rls import candidate_keys
+    from dcarl_tpu_torch.core.store import store_valid
+    from dcarl_tpu_torch.data import sampling
+    from dcarl_tpu_torch.env.driving_env import in_state_indices
+    from dcarl_tpu_torch.env.scenario import t_intersection
+    from dcarl_tpu_torch.models import segment as SEG
+    from dcarl_tpu_torch.models import trustset as TS
+    from dcarl_tpu_torch.planning import fast_rollout as fr
+
+    dev = torch.device("cuda")
+    envs, steps, snap_at, e2e_steps = 64, 1000, 600, 20
+    sec, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        sec[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    init_s, run_s = SEG.make_trustset_trainer(batch=envs)
+    learner = run_s.learner
+    carry = init_s(SEED)
+    lap("build")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    # the punished share of each trained step's batch (read after the run)
+    punished = []
+    in_ts_orig = TS.in_trust_set
+
+    def in_ts_recorded(*args, **kwargs):
+        out = in_ts_orig(*args, **kwargs)
+        punished.append((~out).float().mean())
+        return out
+
+    slot: dict = {}
+    per_step, warm, ms = [], [], []
+    TS.in_trust_set = in_ts_recorded
+    try:
+        with keep_loop_launches(sk, slot, every_sorted=True):
+            _cuda.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                if i == snap_at:
+                    snap = (snapshot(carry), learner.state_dict(),
+                            gen.get_state())
+                before = _cuda.LAUNCHES["sorted_moments"]
+                carry, m = run_s.step(carry, gen)
+                per_step.append(_cuda.LAUNCHES["sorted_moments"] - before)
+                warm.append(carry.warm)
+                ms.append(m)
+            torch.cuda.synchronize()
+            probed_sec = time.perf_counter() - t0
+    finally:
+        TS.in_trust_set = in_ts_orig
+    launches = dict(_cuda.LAUNCHES)
+    met = {k: torch.stack([m[k] for m in ms]) for k in SEG.METRIC_KEYS}
+    n_warm = sum(warm)
+    if warm != [True] * n_warm + [False] * (steps - n_warm) \
+            or any(per_step[:n_warm]) or set(per_step[n_warm:]) != {1}:
+        fail(f"trustset: launches per step {per_step[:n_warm + 3]}... "
+             f"({n_warm} warm-up steps)")
+    if launches != {"sorted_moments": steps - n_warm}:
+        fail(f"trustset: launches {launches} != {steps - n_warm}")
+    if int(met["ts_rows"][-1]) != 1 << 14:
+        fail(f"trustset: {int(met['ts_rows'][-1])} trust-set rows")
+    if not torch.isfinite(met["loss"]).all():
+        fail("trustset: loss not finite")
+    pun = torch.stack(punished)
+    final_state = learner.state_dict()
+    lap("train")
+
+    # the rate: the same steps from the snapshot on, without probes
+    learner.load_state_dict(snap[1])
+    c = snapshot(snap[0])
+    tgen = torch.Generator(device=dev)
+    tgen.set_state(snap[2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(snap_at, steps):
+        c, _ = run_s.step(c, tgen)
+    torch.cuda.synchronize()
+    run_sec = time.perf_counter() - t0
+    learner.load_state_dict(final_state)
+    del c
+    lap("rate")
+
+    # the launch with the most matches against the plain version
+    kept = slot["launch_sorted"]
+    best = int(torch.stack([o[:, 0].sum() for _, o in kept]).argmax())
+    (ops,), out = kept[best]
+    err = compare(out, sk.sorted_moments_plain(ops), "trustset_kept_launch")
+    if not torch.equal(sk.sorted_moments(ops), out):
+        fail("trustset: two sorted_moments launches differ")
+    kept_matches = int(out[:, 0].sum())
+    # that launch timed alone, with its plain version, and its bound
+    kept_ms = cuda_ms(lambda: sk.sorted_moments(ops))
+    kept_plain_ms = cuda_ms(lambda: sk.sorted_moments_plain(ops))
+    _, _, k_bytes, k_ops, _ = sorted_probe(sk, _cuda)((ops,), out)()
+    kept_bound = bound_ms(float(k_bytes), float(k_ops))
+    del kept, slot
+    lap("kept_launch")
+
+    # the fleet's width against the trained trust set
+    env_cfg = EnvConfig()
+    sc = t_intersection(env_cfg)
+    idx = in_state_indices(sc)
+    init_r, run_r = fr.make_rule_driver_fast(sc, env_cfg)
+    rgen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    fleet, _ = run_r(init_r(65536, rgen), 40, rgen)
+    obs = fr._obs_ori_soa(fleet, idx).T.contiguous()
+    with torch.no_grad():
+        enc = learner.net.encoded_state(obs)
+    ts = carry.ts
+    calls = (("act_ts", lambda: learner.act_ts(ts, obs, enc)),
+             ("act_ts_explore", lambda: learner.act_ts_explore(ts, obs, enc)),
+             ("hybrid_act", lambda: TS.hybrid_act(ts, enc, 11)))
+    _cuda.LAUNCHES.clear()
+    call_s = {}
+    for name, fn in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = fn()
+        torch.cuda.synchronize()
+        call_s[name] = time.perf_counter() - t0
+        if a.shape != (65536,) or int(a.min()) < 0 or int(a.max()) > 10:
+            fail(f"trustset fleet: {name} gave actions out of range")
+    fleet_launches = dict(_cuda.LAUNCHES)
+    if fleet_launches != {"sorted_moments": 3}:
+        fail(f"trustset fleet: launches {fleet_launches} != 3")
+    record = []
+    with timed_launches(sk, "launch_sorted", record, sorted_probe(sk, _cuda)):
+        for _, fn in calls:
+            fn()
+    fleet_summ = summarize(record)
+    keys = candidate_keys(enc, 11).reshape(-1, 4)
+    ops, _ = sk.sorted_query_operands(ts.store.keys, ts.store.values,
+                                      store_valid(ts.store), keys,
+                                      ts.half_widths)
+    full = sk.sorted_moments(ops)
+    matched = full[:, 0] > 0
+    fgen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    top = torch.argsort(full[:, 0], descending=True)[:2048]
+    sel = torch.cat([top, torch.randint(0, keys.shape[0], (2048,),
+                                        generator=fgen, device=dev)])
+    sub = ops._replace(q_t=ops.q_t[:, sel].contiguous())
+    f_err = compare(full[sel], sk.sorted_moments_plain(sub), "trustset_fleet")
+    fleet_plain_ms = cuda_ms(lambda: sk.sorted_moments_plain(sub))
+    del ops, sub, full
+    lap("fleet")
+
+    # kernel route == brute route from the step-600 snapshot
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    draws = [run_s.draw(dgen) for _ in range(e2e_steps)]
+    routes = []
+    for use_kernel in (True, False):
+        if use_kernel:
+            run_e = run_s
+        else:
+            _, run_e = SEG.make_trustset_trainer(batch=envs, use_kernel=False)
+        run_e.learner.load_state_dict(snap[1])
+        c = snapshot(snap[0])
+        egen = torch.Generator(device=dev).manual_seed(SEED + 24)
+        held, mets = [], []
+        for d in draws:
+            c, m = run_e.with_draws(c, d, egen)
+            held.append(c.hold.action)
+            mets.append(m)
+        routes.append((c, torch.stack(held), mets))
+    (ca, ha, ma), (cb, hb, mb) = routes
+    same = [torch.equal(getattr(ca.ts.store, f), getattr(cb.ts.store, f))
+            for f in ("keys", "values", "size")]
+    same += [torch.equal(getattr(ca.replay, f), getattr(cb.replay, f))
+             for f in ca.replay._fields]
+    same.append(torch.equal(ha, hb))
+    for x, y in zip(ma, mb):
+        same += [torch.equal(x[k], y[k]) for k in
+                 ("pushed", "segments_closed", "replay_size", "ts_rows")]
+        same.append(bool(torch.allclose(x["loss"], y["loss"], rtol=1e-6,
+                                        atol=0)))
+    if not all(same):
+        fail("trustset e2e: kernel route differs from the brute route")
+    learner.load_state_dict(final_state)
+    lap("e2e")
+
+    # the golden confidence core: the card against the CPU, float64
+    ggen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    ds = sampling.generate(ggen, size=20_000)
+    cap = C.required_capacity(ds.data.cpu().numpy(), 20, 11)
+    golden = {}
+    for where in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tab, gout = C.golden_run(ds.data, ds.action_values, action_num=11,
+                                 capacity=cap, device=where)
+        torch.cuda.synchronize()
+        golden[where] = (time.perf_counter() - t0, tab, gout)
+    (_, tab_g, out_g), (_, tab_c, out_c) = golden["cuda"], golden["cpu"]
+    if not (torch.equal(out_g.tsrl_action.cpu(), out_c.tsrl_action)
+            and torch.equal(tab_g.activation_step.cpu(), tab_c.activation_step)
+            and torch.allclose(tab_g.tsrl.cpu(), tab_c.tsrl, rtol=1e-10,
+                               atol=0)
+            and torch.allclose(out_g.step_value.cpu(), out_c.step_value,
+                               rtol=1e-10, atol=0)):
+        fail("trustset golden: the card's golden run differs from the CPU's")
+    lap("golden")
+    sgen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    streams = sampling.generate(sgen, size=4096 * 1000).data.reshape(4096,
+                                                                    1000, 4)
+    batch_s = {}
+    tables = {}
+    for where in ("cuda", "cpu"):
+        x = streams.to(where, torch.float64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables[where] = C.running_update_batch(
+            C.running_init((4096, 20, 11), dtype=torch.float64, device=where),
+            x[..., 0], x[..., 2], x[..., 3])
+        torch.cuda.synchronize()
+        batch_s[where] = time.perf_counter() - t0
+    tg, tc = tables["cuda"], tables["cpu"]
+    if not (torch.equal(tg.count.cpu(), tc.count)
+            and torch.allclose(tg.tsrl.cpu(), tc.tsrl, rtol=1e-10, atol=1e-9)):
+        fail("trustset running table: the card differs from the CPU")
+    lap("running_batch")
+
+    emit("trustset", envs=envs, steps=steps, warmup_steps=n_warm,
+         trained_steps=steps - n_warm, probed_seconds=probed_sec,
+         timed_steps=steps - snap_at, seconds=run_sec,
+         env_steps_per_s=envs * (steps - snap_at) / run_sec,
+         launches=launches,
+         launches_per_trained_step=launches["sorted_moments"] / (steps - n_warm),
+         ts_rows=int(met["ts_rows"][-1]), replay_rows=int(met["replay_size"][-1]),
+         pushed=int(met["pushed"].sum()),
+         segments_closed=int(met["segments_closed"].sum()),
+         held_fraction_mean=float(met["held_fraction"].mean()),
+         held_fraction_last=float(met["held_fraction"][-1]),
+         punished_share_first100=float(pun[:100].mean()),
+         punished_share_last100=float(pun[-100:].mean()),
+         loss_first100=float(met["loss"][n_warm:n_warm + 100].mean()),
+         loss_last100=float(met["loss"][-100:].mean()),
+         reward_mean=float(met["reward_mean"].mean()),
+         kept_launch_max_abs_err=err, kept_launch_matches=kept_matches,
+         kept_launch_queries=int(out.shape[0]), kept_launch_bit_equal=True,
+         kept_launch_ms=kept_ms, kept_launch_plain_ms=kept_plain_ms,
+         kept_launch_bound_ms=kept_bound[0], kept_launch_bound_by=kept_bound[1],
+         e2e_steps_from=snap_at, e2e_steps=e2e_steps,
+         e2e_kernel_eq_brute=True, section_seconds=sec,
+         phase_seconds=sum(sec.values()), gpu=gpu)
+    emit("trustset_fleet", envs=65536, queries=int(keys.shape[0]),
+         ts_rows=int(ts.store.size), launches=fleet_launches,
+         call_seconds=call_s, matched_query_share=float(matched.float().mean()),
+         matches=float(fleet_summ["matches_mean"]),
+         held_queries=4096, max_abs_err=f_err,
+         plain_ms_4096=fleet_plain_ms,
+         **fleet_summ, gpu=gpu)
+    emit("golden", rows=20_000, capacity=cap,
+         cuda_seconds=golden["cuda"][0], cpu_seconds=golden["cpu"][0],
+         activated_states=int((tab_c.activation_step >= 0).sum()),
+         decisions_equal=True,
+         max_rel_tsrl_diff=float(((tab_g.tsrl.cpu() - tab_c.tsrl).abs()
+                                  / tab_c.tsrl.abs().clamp(min=1e-300)).max()),
+         running_batch_streams=4096, running_batch_samples=1000,
+         running_batch_cuda_seconds=batch_s["cuda"],
+         running_batch_cpu_seconds=batch_s["cpu"], gpu=gpu)
+    return err, f_err
 
 
 def main() -> int:
@@ -1256,6 +1554,11 @@ def main() -> int:
     for kernel, err in loop_errs.items():
         note_err(kernel, err)
     vehicle_life_phase(sk, _cuda, hw, gpu)
+
+    # --- the trust-set DQN trainer, the fleet's trust-set queries, the
+    # golden confidence core
+    for err in trustset_phase(sk, _cuda, gpu):
+        note_err("sorted_moments", err)
 
     emit("done", seconds=time.perf_counter() - t_start,
          gated_on_trainer_store_gate_share=ts_gate)

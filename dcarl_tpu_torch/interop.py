@@ -1,8 +1,9 @@
 """Carry state across from the JAX package.
 
 The drivers' state is the env carry, the confidence store and the
-reference-path tables; the trainer adds trajectory buffers, a replay
-buffer and the learner (a flax Q-network and its optax Adam state).
+reference-path tables; the trainers add trajectory buffers, act-hold
+segments, a trust set, a replay buffer and the learner (a flax
+Q-network and its optax Adam state).
 These helpers take that state as numpy arrays (``np.asarray`` of each
 JAX array, or nested mappings of them; this module never imports JAX)
 and return the port's tensors on a given device, or load them into the
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dcarl_tpu_torch.core.store import ConfidenceStore
 from dcarl_tpu_torch.models.networks import AttentionQNet
 from dcarl_tpu_torch.models.replay import Replay
 from dcarl_tpu_torch.planning.fast_rollout import FastEnvState, RefTables
@@ -28,6 +30,10 @@ _BOOL_FIELDS = ("done", "collided", "passed", "stuck")
 def _fields(src: Any) -> Mapping[str, Any]:
     """A NamedTuple (``_asdict``) or a mapping, by field name."""
     return src._asdict() if hasattr(src, "_asdict") else src
+
+
+def _to(a, device, dt) -> torch.Tensor:
+    return torch.as_tensor(np.array(np.asarray(a))).to(device, dt)
 
 
 def fast_env_state_from_numpy(src: Any, device, dtype=torch.float32
@@ -78,53 +84,110 @@ def fast_train_state_from_numpy(src: Any, device, dtype=torch.float32):
     axis kept.  Env, observations, trajectory buffers and store rows take
     ``dtype``; the replay keeps its float32 / int32 layout.  The learner
     fields (``params``, ``target_params``, ``opt_state``) go into the
-    port's learner instead: :func:`attention_qnet_from_flax` and
+    port's learner instead: :func:`qnet_from_flax` and
     :func:`adam_state_from_optax`."""
     from dcarl_tpu_torch.train_fast import FastTrainState
 
     f = _fields(src)
-
-    def to(a, dt):
-        return torch.as_tensor(np.array(np.asarray(a))).to(device, dt)
-
-    rp = _fields(f["replay"])
-    replay = Replay(**{
-        name: to(rp[name], torch.int32 if name in ("action", "size", "head")
-                 else torch.float32) for name in Replay._fields})
     out = {"env": fast_env_state_from_numpy(f["env"], device, dtype),
-           "replay": replay, "frame": to(f["frame"], torch.int32)}
+           "replay": replay_from_numpy(f["replay"], device),
+           "frame": _to(f["frame"], device, torch.int32)}
     for name in ("obs_ori", "traj_obs", "traj_act", "traj_rew",
                  "store_keys", "store_actions", "store_values"):
-        out[name] = to(f[name], dtype)
+        out[name] = _to(f[name], device, dtype)
     for name in ("traj_len", "store_size", "store_head", "store_total"):
-        out[name] = to(f[name], torch.int32)
+        out[name] = _to(f[name], device, torch.int32)
     return FastTrainState(**out)
+
+
+def replay_from_numpy(src: Any, device) -> Replay:
+    """A replay buffer (``dcarl_tpu.models.replay.Replay``, any leading
+    axes kept): float32 rows, int32 action, size and head."""
+    rp = _fields(src)
+    return Replay(**{
+        name: _to(rp[name], device, torch.int32
+                  if name in ("action", "size", "head") else torch.float32)
+        for name in Replay._fields})
+
+
+def trustset_from_numpy(src: Any, device):
+    """A ``dcarl_tpu.models.trustset.TrustSet`` (its store and half-widths)
+    as the port's."""
+    from dcarl_tpu_torch.models.trustset import TrustSet
+
+    f = _fields(src)
+    st = _fields(f["store"])
+    store = ConfidenceStore(**{
+        name: _to(st[name], device, torch.int32 if name in ("size", "head")
+                  else torch.float32) for name in ConfidenceStore._fields})
+    return TrustSet(store=store,
+                    half_widths=_to(f["half_widths"], device, torch.float32))
+
+
+def segment_hold_from_numpy(src: Any, device, dtype=torch.float32):
+    """A ``dcarl_tpu.models.segment.SegmentHold`` as the port's."""
+    from dcarl_tpu_torch.models.segment import SegmentHold
+
+    f = _fields(src)
+    kinds = {"length": torch.int32, "action": torch.int32,
+             "fresh": torch.bool, "tail": torch.bool}
+    return SegmentHold(**{name: _to(f[name], device, kinds.get(name, dtype))
+                          for name in SegmentHold._fields})
+
+
+def trustset_carry_from_numpy(src: Any, learner, device, dtype=torch.float32):
+    """The whole carry of the JAX ``make_trustset_trainer`` (its
+    ``Carry``: ``env``, ``hold``, ``dqn``, ``ts``) as the port's
+    ``TrustsetCarry``; the ``DQNState``'s params, target params and optax
+    Adam state go into ``learner`` (the trainer's ``run_fn.learner``)."""
+    from dcarl_tpu_torch.models.segment import TrustsetCarry
+
+    f = _fields(src)
+    dqn = _fields(f["dqn"])
+    qnet_from_flax(dqn["params"], learner.net)
+    qnet_from_flax(dqn["target_params"], learner.target_net)
+    adam_state_from_optax(dqn["opt_state"], learner.optimizer, learner.net)
+    return TrustsetCarry(
+        env=fast_env_state_from_numpy(f["env"], device, dtype),
+        hold=segment_hold_from_numpy(f["hold"], device, dtype),
+        replay=replay_from_numpy(dqn["replay"], device),
+        frame=_to(dqn["frame"], device, torch.int32),
+        ts=trustset_from_numpy(f["ts"], device),
+        warm=True)
 
 
 _FLAX_LAYERS = (("q_lin",), ("k_lin",), ("v_lin",), ("head", "layers_0"),
                 ("head", "layers_2"), ("head", "layers_4"))
 
 
-def _flax_dense_pairs(tree: Any, net: AttentionQNet
+def _flax_dense_pairs(tree: Any, net: nn.Module
                       ) -> Iterator[Tuple[Mapping[str, Any], nn.Linear]]:
-    """(flax ``Dense`` leaf dict, matching ``nn.Linear``) pairs of an
-    AttentionQNet's param tree (with or without the ``params`` level)."""
+    """(flax ``Dense`` leaf dict, matching ``nn.Linear``) pairs of a
+    Q-network's param tree (with or without the ``params`` level): the
+    named layers of ``AttentionQNet``, or ``Dense_0``, ``Dense_1``, ...
+    of the ``@nn.compact`` nets in the order of the port net's
+    ``dense``."""
     tree = _fields(tree)
     if "params" in tree:
         tree = _fields(tree["params"])
-    mods = (net.q_lin, net.k_lin, net.v_lin, net.head[0], net.head[2],
-            net.head[4])
-    for path, mod in zip(_FLAX_LAYERS, mods):
+    if isinstance(net, AttentionQNet):
+        pairs = zip(_FLAX_LAYERS, (net.q_lin, net.k_lin, net.v_lin,
+                                   net.head[0], net.head[2], net.head[4]))
+    else:
+        pairs = ((("Dense_%d" % i,), lin) for i, lin in enumerate(net.dense))
+    for path, mod in pairs:
         node = tree
         for key in path:
             node = _fields(node[key])
         yield node, mod
 
 
-def attention_qnet_from_flax(params: Any, net: AttentionQNet
-                             ) -> AttentionQNet:
-    """Load flax ``AttentionQNet`` params into ``net`` (in place; returns
-    it): a ``Dense`` kernel ``[in, out]`` becomes ``weight = kernel.T``."""
+def qnet_from_flax(params: Any, net: nn.Module) -> nn.Module:
+    """Load a flax Q-network's params (``MLPQNet``, ``AttentionQNet``,
+    ``DuelingQNet``, ``BootstrapQNet``; or any tree of that layout, such
+    as one of Adam's moments) into the port's net of the same kind (in
+    place; returns it): a ``Dense`` kernel ``[in, out]`` becomes
+    ``weight = kernel.T``."""
     with torch.no_grad():
         for node, lin in _flax_dense_pairs(params, net):
             lin.weight.copy_(torch.as_tensor(np.array(node["kernel"]).T))
@@ -133,7 +196,7 @@ def attention_qnet_from_flax(params: Any, net: AttentionQNet
 
 
 def adam_state_from_optax(opt_state: Any, optimizer: torch.optim.Adam,
-                          net: AttentionQNet) -> None:
+                          net: nn.Module) -> None:
     """Load ``optax.adam``'s state ``(count, mu, nu)`` (its
     ``ScaleByAdamState``, alone or first in the chain's tuple) into
     ``optimizer``, a ``torch.optim.Adam`` over ``net``'s parameters, as

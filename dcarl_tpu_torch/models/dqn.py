@@ -1,11 +1,15 @@
-"""DQN learner (``dcarl_tpu/models/dqn.py``): epsilon-greedy proposals,
-the prioritized TD loss (single or double Q) and an Adam step.
+"""DQN learner (``dcarl_tpu/models/dqn.py``): epsilon-greedy, trust-set
+gated and UCB action selection, the prioritized TD loss (single or
+double Q) with the trust set's no-data punishment, an Adam step, and
+parameter-space noise exploration.
 
 The learner is an object that owns the online network, the target
 network and a ``torch.optim.Adam(lr)`` over the online parameters; each
-update changes them in place.  Its random inputs (the epsilon uniform
-and the random action) come in as tensors, so a caller can feed both
-packages the same draws.
+update changes them in place.  What the JAX package's ``DQNState`` holds
+besides (the replay and the frame counter) goes in and out of the
+training steps explicitly.  Random inputs (the epsilon uniform, the
+random action, the replay's Gumbel noise, the parameter noise) come in
+as tensors, so a caller can feed both packages the same draws.
 
 ``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) and
 ``torch.optim.Adam(lr)`` apply the same update up to rounding: optax
@@ -16,12 +20,14 @@ the step size and the denominator.
 from __future__ import annotations
 
 import copy
-from typing import Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from dcarl_tpu_torch.config import DQNConfig
+from dcarl_tpu_torch.models import replay as RB
+from dcarl_tpu_torch.models import trustset as TS
 from dcarl_tpu_torch.models.replay import Batch
 
 
@@ -83,6 +89,34 @@ class DQN:
         return torch.where(explore, random_action.to(greedy.dtype),
                            greedy).to(torch.int32)
 
+    def act_ts(self, ts: TS.TrustSet, obs: torch.Tensor,
+               enc_obs: torch.Tensor, num_actions: Optional[int] = None,
+               use_kernel: Optional[bool] = None) -> torch.Tensor:
+        """Trust-set gated argmax (act_ts, dqn.py:101-112): actions with
+        no trust-set data near ``enc_obs`` score -1000.  [B] i32."""
+        with torch.no_grad():
+            q = self.net(obs)
+        a = num_actions or q.shape[-1]
+        in_ts = TS.in_trust_set_action(ts, enc_obs, a, use_kernel)
+        q = torch.where(in_ts, q[..., :a], -1000.0)
+        return torch.argmax(q, dim=-1).to(torch.int32)
+
+    def act_ts_explore(self, ts: TS.TrustSet, obs: torch.Tensor,
+                       enc_obs: torch.Tensor, num_actions: Optional[int] = None,
+                       use_kernel: Optional[bool] = None) -> torch.Tensor:
+        """UCB exploration (act_ts_explore, dqn.py:114-131):
+        argmax q + c sqrt(log sum(N) / N_a), N_a the trust-set counts
+        (at least 1).  [B] i32."""
+        with torch.no_grad():
+            q = self.net(obs)
+        a = num_actions or q.shape[-1]
+        n_a = torch.clamp(TS.state_action_counts(ts, enc_obs, a, use_kernel),
+                          min=1).to(torch.float32)
+        total = n_a.sum(dim=-1, keepdim=True)
+        bonus = self.cfg.ucb_c * torch.sqrt(torch.log(total) / n_a)
+        return torch.argmax(q[..., :a] + bonus, dim=-1).to(torch.int32)
+
+    # ------------------------------------------------------------------
     def td_loss(self, batch: Batch, punishment: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Weighted TD loss (compute_td_loss, dqn.py:176-213): target =
@@ -114,6 +148,53 @@ class DQN:
         self.optimizer.step()
         return loss.detach(), prios
 
+    def _sample(self, replay: RB.Replay, frame: torch.Tensor,
+                gumbel: torch.Tensor) -> Batch:
+        return RB.replay_sample(replay, gumbel, alpha=self.cfg.priority_alpha,
+                                beta=beta_by_frame(frame, self.cfg))
+
+    def train_step(self, replay: RB.Replay, frame: torch.Tensor,
+                   gumbel: torch.Tensor,
+                   punishment_mask: Optional[torch.Tensor] = None
+                   ) -> Tuple[RB.Replay, torch.Tensor, torch.Tensor]:
+        """One prioritized-replay step (the JAX ``DQN.train_step``):
+        sample with ``gumbel`` [batch_size, capacity], one Adam step, new
+        priorities.  ``punishment_mask`` [batch_size] marks samples whose
+        next state is outside the trust set (no_data_punishment,
+        dqn.py:191-196).  Returns (replay, frame + 1, loss)."""
+        batch = self._sample(replay, frame, gumbel)
+        if punishment_mask is None:
+            punishment = torch.zeros_like(batch.reward)
+        else:
+            punishment = torch.where(punishment_mask,
+                                     self.cfg.no_data_punishment, 0.0)
+        loss, prios = self.train_on(batch, punishment)
+        return (RB.replay_update_priorities(replay, batch.indices, prios),
+                (frame + 1).to(torch.int32), loss)
+
+    def train_step_with_trustset(
+            self, replay: RB.Replay, frame: torch.Tensor, ts: TS.TrustSet,
+            gumbel: torch.Tensor, encoder: Optional[nn.Module] = None,
+            use_kernel: Optional[bool] = None
+    ) -> Tuple[RB.Replay, torch.Tensor, TS.TrustSet, torch.Tensor]:
+        """The reference's full update (compute_td_loss, dqn.py:176-213):
+        sample, add the encoded batch to the trust set, punish targets
+        whose next encoded state has no trust-set data, one Adam step.
+        ``encoder`` (default: the online net, as the JAX trainer passes
+        its params) encodes ``obs`` and ``next_obs`` with its weights from
+        before the step.  Returns (replay, frame + 1, trust set, loss)."""
+        batch = self._sample(replay, frame, gumbel)
+        encoder = self.net if encoder is None else encoder
+        with torch.no_grad():
+            enc = encoder.encoded_state(batch.obs)
+            enc_next = encoder.encoded_state(batch.next_obs)
+        ts = TS.add_data(ts, enc, batch.action.to(torch.float32), batch.reward)
+        in_ts = TS.in_trust_set(ts, enc_next, self.net.num_actions, use_kernel)
+        punishment = torch.where(in_ts, 0.0, self.cfg.no_data_punishment)
+        loss, prios = self.train_on(batch, punishment)
+        return (RB.replay_update_priorities(replay, batch.indices, prios),
+                (frame + 1).to(torch.int32), ts, loss)
+
     def update_target(self, sync: torch.Tensor) -> None:
         """Hard target sync (update_target, dqn.py:248-249) where the
         bool tensor ``sync`` holds: a select on the device, so the caller
@@ -122,3 +203,92 @@ class DQN:
             for t, p in zip(self.target_net.parameters(),
                             self.net.parameters()):
                 t.copy_(torch.where(sync, p, t))
+
+
+# ---------------------------------------------------------------------------
+# Parameter-space noise exploration (SB deepq/build_graph.py param_noise:
+# perturbed-network action selection with the adaptive scale rule of
+# Plappert et al., as build_act_with_param_noise implements it)
+# ---------------------------------------------------------------------------
+
+
+class ParamNoiseState(NamedTuple):
+    """The adaptive noise's scale (perturbation stddev) and its KL
+    target (build_graph.py's param_noise_scale / _threshold)."""
+
+    scale: torch.Tensor
+    threshold: torch.Tensor
+
+
+def param_noise_init(initial_scale: float = 0.01, device=None
+                     ) -> ParamNoiseState:
+    return ParamNoiseState(
+        scale=torch.full((), initial_scale, dtype=torch.float32, device=device),
+        threshold=torch.zeros((), dtype=torch.float32, device=device))
+
+
+def perturb_params(net: nn.Module, scale: torch.Tensor,
+                   noise: Optional[Dict[str, torch.Tensor]] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """``{name: p + scale * N(0, 1)}`` for every parameter of ``net``
+    (build_graph.py perturb_vars), for ``torch.func.functional_call``.
+    The unit normals are ``noise[name]`` where given, else drawn from
+    ``generator``."""
+    out = {}
+    for name, p in net.named_parameters():
+        z = noise[name] if noise is not None else torch.randn(
+            p.shape, generator=generator, dtype=p.dtype, device=p.device)
+        out[name] = p.detach() + scale * z
+    return out
+
+
+def param_noise_threshold_from_eps(eps: torch.Tensor, num_actions: int
+                                   ) -> torch.Tensor:
+    """build_act_with_param_noise ties the KL target to the epsilon
+    schedule: -log(1 - eps + eps / |A|)."""
+    return -torch.log(1.0 - eps + eps / num_actions)
+
+
+class DQNParamNoise:
+    """Perturbed action selection and the 1.01-factor adaptive scale
+    update, bound to a :class:`DQN`.  The noise is ``noise`` (unit
+    normals by parameter name) where given, else drawn from
+    ``generator``."""
+
+    def __init__(self, dqn: DQN):
+        self.dqn = dqn
+
+    def _perturbed_q(self, pn: ParamNoiseState, obs, noise, generator):
+        params = perturb_params(self.dqn.net, pn.scale, noise, generator)
+        return torch.func.functional_call(self.dqn.net, params, (obs,))
+
+    def act(self, pn: ParamNoiseState, obs: torch.Tensor,
+            noise: Optional[Dict[str, torch.Tensor]] = None,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Greedy actions of the perturbed network
+        (build_act_with_param_noise).  [B] i32."""
+        with torch.no_grad():
+            q = self._perturbed_q(pn, obs, noise, generator)
+        return torch.argmax(q, dim=-1).to(torch.int32)
+
+    def adapt(self, pn: ParamNoiseState, obs: torch.Tensor,
+              frame: torch.Tensor,
+              noise: Optional[Dict[str, torch.Tensor]] = None,
+              generator: Optional[torch.Generator] = None
+              ) -> Tuple[ParamNoiseState, torch.Tensor]:
+        """Scale adaption (build_graph.py update_scale): the mean KL
+        between the clean and perturbed action distributions on ``obs``;
+        the scale grows by 1.01 while the KL is under the threshold
+        (which follows epsilon at ``frame``), else shrinks.
+        Returns (new state, KL)."""
+        with torch.no_grad():
+            q = self.dqn.net(obs)
+            q_pert = self._perturbed_q(pn, obs, noise, generator)
+        logp = torch.log_softmax(q, dim=-1)
+        logq = torch.log_softmax(q_pert, dim=-1)
+        kl = (torch.exp(logp) * (logp - logq)).sum(dim=-1).mean()
+        eps = epsilon_by_frame(frame, self.dqn.cfg)
+        thresh = param_noise_threshold_from_eps(eps, q.shape[-1])
+        scale = torch.where(kl < thresh, pn.scale * 1.01, pn.scale / 1.01)
+        return ParamNoiseState(scale=scale, threshold=thresh), kl

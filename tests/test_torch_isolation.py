@@ -44,6 +44,11 @@ def test_port_import_pulls_in_no_jax():
         "import dcarl_tpu_torch.session\n"
         "import dcarl_tpu_torch.workingset\n"
         "import dcarl_tpu_torch.utils.checkpoint\n"
+        "import dcarl_tpu_torch.core.confidence\n"
+        "import dcarl_tpu_torch.data\n"
+        "import dcarl_tpu_torch.models.networks\n"
+        "import dcarl_tpu_torch.models.segment\n"
+        "import dcarl_tpu_torch.models.trustset\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'dcarl_tpu')]\n"
         "assert not bad, bad\n")

@@ -264,7 +264,7 @@ def test_sorted_kernel_long_window_over_few_tiles(cuda, q):
     _check(got, ref)
 
 
-@pytest.mark.parametrize("d", [1, 5, 21, 32])
+@pytest.mark.parametrize("d", [1, 4, 5, 21, 32])
 def test_sorted_and_brute_kernels_every_key_width(cuda, d):
     arrs = _flat_store(np.random.default_rng(100 + d), 6000, 500, d)
     if d == 1:
@@ -273,6 +273,47 @@ def test_sorted_and_brute_kernels_every_key_width(cuda, d):
     ref = K.brute_moments_plain(k, v, m, qq, w)
     _check(K.box_query_moments_sorted(k, v, m, qq, w), ref)
     _check(K.box_query_moments_brute(k, v, m, qq, w), ref)
+
+
+def _plain_in_chunks(ops, chunk=1 << 14):
+    """sorted_moments_plain over slices of the queries (its [Q, N]
+    containment mask would not fit at once)."""
+    return torch.cat([K.sorted_moments_plain(ops._replace(
+        q_t=ops.q_t[:, i:i + chunk])) for i in range(0, ops.q_t.shape[1],
+                                                      chunk)])
+
+
+def test_sorted_kernel_on_a_trust_set(cuda):
+    """The trust-set trainer's query at the fleet's width: 2^14 D = 4 rows
+    (a 3-wide encoding and the action) drawn with replacement from 512
+    (state, action) pairs, half-widths (0.3, 0.3, 0.3, 0.1), and the
+    11 candidate keys of 65,536 encodings (720,896 queries)."""
+    rng = np.random.default_rng(14)
+    enc = rng.normal(0, 2.0, (512, 3)).astype(np.float32)
+    act = rng.integers(0, 11, 512).astype(np.float32)
+    pick = rng.integers(0, 512, 1 << 14)
+    keys = np.concatenate([enc[pick], act[pick, None]], 1)
+    values = rng.normal(0, 10, 1 << 14).astype(np.float32)
+    q_enc = (enc[rng.integers(0, 512, 65536)]
+             + rng.normal(0, 0.2, (65536, 3))).astype(np.float32)
+    queries = np.concatenate([np.repeat(q_enc, 11, 0), np.tile(
+        np.arange(11, dtype=np.float32), 65536)[:, None]], 1)
+    w = np.asarray([0.3, 0.3, 0.3, 0.1], np.float32)
+    k, v, qq, ww = (torch.as_tensor(a, device=cuda)
+                    for a in (keys, values, queries, w))
+    m = torch.ones(1 << 14, dtype=torch.bool, device=cuda)
+    ops, qorder = K.sorted_query_operands(k, v, m, qq, ww)
+    before = _cuda.LAUNCHES["sorted_moments"]
+    got = K.sorted_moments(ops)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["sorted_moments"] == before + 1
+    ref = _plain_in_chunks(ops)
+    assert float(ref[:, 0].max()) > 32   # duplicated rows: many matches
+    _check(got, ref)
+    assert torch.equal(K.sorted_moments(ops), got)
+    # the flat wrapper un-sorts to the caller's query order
+    flat = K.box_query_moments_sorted(k, v, m, qq, ww)
+    assert torch.equal(flat[qorder], got)
 
 
 def test_peraction_kernel_long_window_over_few_tiles(cuda):

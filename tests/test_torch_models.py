@@ -55,7 +55,7 @@ def test_attention_qnet_matches_flax():
     net, params = _flax_params(0)
     obs = np.random.default_rng(0).normal(0, 1.5, (64, D)).astype(np.float32)
     ref = np.asarray(net.apply(params, jnp.asarray(obs)))
-    tnet = interop.attention_qnet_from_flax(params, AttentionQNet(A))
+    tnet = interop.qnet_from_flax(params, AttentionQNet(A))
     got = tnet(_t(obs)).detach().numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
 
@@ -160,7 +160,7 @@ def test_act_epsilon_greedy_matches_jax():
     k_eps, k_act = jax.random.split(key)
     eps_u = _t(jax.random.uniform(k_eps, (256,)))
     rand = _t(jax.random.randint(k_act, (256,), 0, A))
-    tl = DQ.DQN(interop.attention_qnet_from_flax(params, AttentionQNet(A)),
+    tl = DQ.DQN(interop.qnet_from_flax(params, AttentionQNet(A)),
                 cfg=DQNConfig(epsilon_decay=50.0))
     got = tl.act_epsilon_greedy(_t(obs), torch.tensor(20), eps_u, rand)
     assert got.dtype == torch.int32
@@ -196,26 +196,26 @@ def test_td_loss_and_adam_steps_match_jax(double_q):
     p1, opt1, _, _ = jax_step(params, jl.tx.init(params), batches[0])
     p2, _, loss2, prios2 = jax_step(p1, opt1, batches[1])
 
-    tl = DQ.DQN(interop.attention_qnet_from_flax(params, AttentionQNet(A)),
+    tl = DQ.DQN(interop.qnet_from_flax(params, AttentionQNet(A)),
                 cfg=DQNConfig(), double_q=double_q)
-    interop.attention_qnet_from_flax(target, tl.target_net)
+    interop.qnet_from_flax(target, tl.target_net)
     tb = [RB.Batch(*(_t(x) for x in b)) for b in batches]
     tl.train_on(tb[0], torch.zeros(32))
-    ref1 = interop.attention_qnet_from_flax(p1, AttentionQNet(A))
+    ref1 = interop.qnet_from_flax(p1, AttentionQNet(A))
     for (name, p), r in zip(tl.net.named_parameters(), ref1.parameters()):
         np.testing.assert_allclose(p.detach().numpy(), r.detach().numpy(),
                                    err_msg=name, **_param_tol(name, 1, 1e-3))
 
     # second step from JAX's own state after step 1
-    tl2 = DQ.DQN(interop.attention_qnet_from_flax(p1, AttentionQNet(A)),
+    tl2 = DQ.DQN(interop.qnet_from_flax(p1, AttentionQNet(A)),
                  cfg=DQNConfig(), double_q=double_q)
-    interop.attention_qnet_from_flax(target, tl2.target_net)
+    interop.qnet_from_flax(target, tl2.target_net)
     interop.adam_state_from_optax(opt1, tl2.optimizer, tl2.net)
     loss_t, prios_t = tl2.train_on(tb[1], torch.zeros(32))
     np.testing.assert_allclose(float(loss_t), float(loss2), rtol=1e-5)
     np.testing.assert_allclose(prios_t.numpy(), np.asarray(prios2),
                                rtol=1e-5, atol=1e-7)
-    ref2 = interop.attention_qnet_from_flax(p2, AttentionQNet(A))
+    ref2 = interop.qnet_from_flax(p2, AttentionQNet(A))
     moved = 0.0
     for (name, p), r, r1 in zip(tl2.net.named_parameters(), ref2.parameters(),
                                 ref1.parameters()):

@@ -102,8 +102,8 @@ def _port(variant, s0, use_kernel):
     init_t, step_t, learner, _ = make_trainer_fast(
         _cfg(tcfg), device="cpu", use_kernel=use_kernel, **KW,
         **VARIANTS[variant])
-    interop.attention_qnet_from_flax(s0.params, learner.net)
-    interop.attention_qnet_from_flax(s0.target_params, learner.target_net)
+    interop.qnet_from_flax(s0.params, learner.net)
+    interop.qnet_from_flax(s0.target_params, learner.target_net)
     interop.adam_state_from_optax(s0.opt_state, learner.optimizer,
                                   learner.net)
     return step_t, learner, interop.fast_train_state_from_numpy(s0, CPU)
@@ -146,7 +146,7 @@ def test_trainer_matches_jax_step_for_step(jax_run):
     lr = _cfg(tcfg).dqn.lr
     for tree, net in ((s_j.params, learner.net),
                       (s_j.target_params, learner.target_net)):
-        ref = interop.attention_qnet_from_flax(tree, AttentionQNet(11))
+        ref = interop.qnet_from_flax(tree, AttentionQNet(11))
         for (name, p), r in zip(net.named_parameters(), ref.parameters()):
             tol = (dict(rtol=0, atol=STEPS * lr) if name[:5] in ("q_lin",
                                                                  "k_lin")
@@ -215,8 +215,8 @@ def test_lockstep_fleet_at_bench_ratio_matches_nothing():
     _, step_t, learner, _ = make_trainer_fast(
         tcfg.DCARLConfig(store=tcfg.driving_store_config()), device="cpu",
         use_kernel=True, **kw)
-    interop.attention_qnet_from_flax(s_j.params, learner.net)
-    interop.attention_qnet_from_flax(s_j.target_params, learner.target_net)
+    interop.qnet_from_flax(s_j.params, learner.net)
+    interop.qnet_from_flax(s_j.target_params, learner.target_net)
     interop.adam_state_from_optax(s_j.opt_state, learner.optimizer,
                                   learner.net)
     s_t = interop.fast_train_state_from_numpy(s_j, CPU)
