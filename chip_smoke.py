@@ -74,7 +74,22 @@ closed-loop CLIs (``examples/run_improvement.py``,
                 act_ts_explore and hybrid_act, each launch timed, 4,096 of
                 its queries against the plain version; the golden
                 confidence core on a 20,000-row stream, the card against
-                the CPU, and running_update_batch over 4,096 streams
+                the CPU, the golden core on a one-state 20,000-row
+                stream on the card, and running_update_batch over 4,096
+                streams
+  readable      the readable batch-first drivers (planning/rollout.py)
+                against the lane-major ones, float64, 1,024 envs x 300
+                ticks at reset_jitter 0 from jittered starts: the rule
+                drivers (rewards within rtol 1e-9, done / passed /
+                collided bit-equal, episodes end) and the collectors
+                (used_action, rule_index, recorded_state and
+                episode_return too); each collector's records through
+                workingset.episode_rows into a per-action store, one
+                peraction_moments launch on each (the readable driver's
+                tick-300 observations and the rows' own states as
+                queries): bit-equal to each other and within tolerance of
+                the plain version; the readable and the fast rule driver
+                timed in float32 at 65,536 envs x 50 ticks
 
 Each rate comes from a run without probes; a replay of the same run then
 times each launch and reports its plan (kept and window sub-slices per
@@ -1036,6 +1051,19 @@ def trustset_phase(sk, _cuda, gpu: str) -> tuple:
                                rtol=1e-10, atol=0)):
         fail("trustset golden: the card's golden run differs from the CPU's")
     lap("golden")
+    # a one-state stream: one wave a row, so 20,000 waves
+    ds1 = sampling.generate(torch.Generator(device=dev).manual_seed(SEED + 27),
+                            state_num=1, size=20_000)
+    cap1 = C.required_capacity(ds1.data.cpu().numpy(), 1, 11)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out1 = C.golden_run(ds1.data, ds1.action_values, action_num=11,
+                           capacity=cap1, device="cuda")
+    torch.cuda.synchronize()
+    one_state_s = time.perf_counter() - t0
+    if out1.tsrl_action.shape != (20_000,):
+        fail("trustset golden: the one-state stream gave a misshapen result")
+    lap("golden_one_state")
     sgen = torch.Generator(device=dev).manual_seed(SEED + 26)
     streams = sampling.generate(sgen, size=4096 * 1000).data.reshape(4096,
                                                                     1000, 4)
@@ -1088,6 +1116,7 @@ def trustset_phase(sk, _cuda, gpu: str) -> tuple:
          **fleet_summ, gpu=gpu)
     emit("golden", rows=20_000, capacity=cap,
          cuda_seconds=golden["cuda"][0], cpu_seconds=golden["cpu"][0],
+         one_state_rows=20_000, one_state_cuda_seconds=one_state_s,
          activated_states=int((tab_c.activation_step >= 0).sum()),
          decisions_equal=True,
          max_rel_tsrl_diff=float(((tab_g.tsrl.cpu() - tab_c.tsrl).abs()
@@ -1096,6 +1125,119 @@ def trustset_phase(sk, _cuda, gpu: str) -> tuple:
          running_batch_cuda_seconds=batch_s["cuda"],
          running_batch_cpu_seconds=batch_s["cpu"], gpu=gpu)
     return err, f_err
+
+
+def readable_phase(sk, _cuda, hw, gpu: str) -> float:
+    """The readable batch-first drivers against the lane-major ones on the
+    card, their records through the per-action kernel, and the readable
+    driver's rate; returns the kernel's max |err| against its plain
+    version."""
+    from dcarl_tpu_torch import workingset as ws
+    from dcarl_tpu_torch.config import EnvConfig
+    from dcarl_tpu_torch.env.scenario import t_intersection
+    from dcarl_tpu_torch.planning import fast_rollout as fr
+    from dcarl_tpu_torch.planning import rollout as rd
+
+    dev = torch.device("cuda")
+    envs, ticks, rate_envs = 1024, 300, 65536
+    # the drivers reset to the spawn (jitter 0, so the two layouts' reset
+    # draws never enter); the starts are jittered, so the envs differ
+    cfg, start = EnvConfig(reset_jitter=0.0), EnvConfig()
+    sc = t_intersection(cfg)
+    secs = {}
+
+    def run(name, make, dtype=torch.float64, b=envs, n=ticks,
+            run_cfg=cfg):
+        init_fn, _ = make(sc, start, dtype=dtype, device=dev)
+        _, run_fn = make(sc, run_cfg, dtype=dtype, device=dev)
+        carry = init_fn(b, torch.Generator(device=dev).manual_seed(SEED + 30))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, out = run_fn(carry, n, gen)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return carry, out
+
+    def same_ints(pairs, what):
+        for label, a, b in pairs:
+            if not torch.equal(a, b):
+                fail(f"readable {what}: {label} differs between the readable "
+                     "and the fast driver")
+
+    def close(pairs, what):
+        for label, a, b in pairs:
+            if not torch.allclose(a, b, rtol=1e-9, atol=1e-9):
+                fail(f"readable {what}: {label} beyond rtol 1e-9")
+        return all(torch.equal(a, b) for _, a, b in pairs)
+
+    # (a) the rule drivers, [B, S] against [S, B]
+    (_, tick300), (r_r, d_r, p_r, c_r) = run("rule_readable",
+                                             rd.make_rule_driver)
+    _, f_out = run("rule_fast", fr.make_rule_driver_fast)
+    r_f, d_f, p_f, c_f = (a.T for a in f_out)
+    same_ints((("done", d_r, d_f), ("passed", p_r, p_f),
+               ("collided", c_r, c_f)), "rule driver")
+    rule_bits = close((("reward", r_r, r_f),), "rule driver")
+    if not (d_r.any() and torch.isfinite(r_r).all()):
+        fail("readable rule driver: no episode ended in the window")
+
+    # (b) the collectors
+    _, rc = run("collector_readable", rd.make_collector)
+    _, fc = run("collector_fast", fr.make_collector_fast)
+    same_ints([(f, getattr(rc, f), getattr(fc, f).T) for f in
+               ("done", "collided", "passed", "used_action", "rule_index")],
+              "collector")
+    coll_bits = close([("reward", rc.reward, fc.reward.T),
+                       ("episode_return", rc.episode_return,
+                        fc.episode_return.T),
+                       ("recorded_state", rc.recorded_state,
+                        fc.recorded_state.permute(2, 0, 1))], "collector")
+
+    # (c) each collector's records as a per-action store, one launch each
+    k_r, v_r = ws.episode_rows(rc.done.T, rc.recorded_state.transpose(0, 1),
+                               rc.used_action.T, rc.episode_return.T)
+    k_f, v_f = ws.episode_rows(fc.done, fc.recorded_state.transpose(1, 2),
+                               fc.used_action, fc.episode_return)
+    if k_r.shape[0] < envs or k_r.shape != k_f.shape:
+        fail(f"readable stores: {k_r.shape[0]} and {k_f.shape[0]} rows")
+    # the fleet's tick-300 observations lie between trigger points and
+    # match few rows; the rows' own states add probes that do
+    q = torch.cat([tick300, k_r[:envs, :-1]]).float().contiguous()
+    preps = [sk.prepare_peraction_store(
+        k.float().contiguous(), v.float().contiguous(),
+        torch.ones(k.shape[0], dtype=torch.bool, device=dev), hw, 11)
+        for k, v in ((k_r, v_r), (k_f, v_f))]
+    _cuda.LAUNCHES.clear()
+    outs = [sk.query_peraction_prepared(p, q) for p in preps]
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    if launches != {"peraction_moments": 2}:
+        fail(f"readable stores: launches {launches} != 2")
+    if not torch.equal(outs[0], outs[1]):
+        fail("readable stores: the two launches differ")
+    errs = [compare(o, sk.peraction_moments_plain(p, q), f"readable_{w}")
+            for o, p, w in zip(outs, preps, ("readable", "fast"))]
+
+    # (d) the rate of each rule driver in f32 at the gated path's width,
+    # with the default jitter
+    run("rate_readable", rd.make_rule_driver, torch.float32, rate_envs, 50,
+        start)
+    run("rate_fast", fr.make_rule_driver_fast, torch.float32, rate_envs, 50,
+        start)
+    rates = {k: rate_envs * 50 / secs[k] for k in ("rate_readable",
+                                                   "rate_fast")}
+    emit("readable", envs=envs, ticks=ticks, dtype="float64",
+         episodes_ended=int(d_r.sum()), passed=int(p_r.sum()),
+         rule_rewards_bit_equal=rule_bits, collector_bit_equal=coll_bits,
+         store_rows=int(k_r.shape[0]), queries=int(q.shape[0]),
+         tick300_matches=float(outs[0][:envs, :, 0].sum()),
+         matches=float(outs[0][..., 0].sum()), launches=launches,
+         max_abs_err=max(errs), seconds=secs, gpu=gpu)
+    for k, what in (("rate_readable", "readable"), ("rate_fast", "fast")):
+        print(f"{what} rule driver, float32, {rate_envs} envs x 50 ticks: "
+              f"{rates[k]:.6g} env-steps/s ({gpu})", flush=True)
+    return max(errs)
 
 
 def main() -> int:
@@ -1559,6 +1701,9 @@ def main() -> int:
     # golden confidence core
     for err in trustset_phase(sk, _cuda, gpu):
         note_err("sorted_moments", err)
+
+    # --- the readable batch-first drivers against the lane-major ones
+    note_err("peraction_moments", readable_phase(sk, _cuda, hw, gpu))
 
     emit("done", seconds=time.perf_counter() - t_start,
          gated_on_trainer_store_gate_share=ts_gate)

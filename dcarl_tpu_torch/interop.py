@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from dcarl_tpu_torch.core.store import ConfidenceStore
+from dcarl_tpu_torch.env import driving_env as de
 from dcarl_tpu_torch.models.networks import AttentionQNet
 from dcarl_tpu_torch.models.replay import Replay
 from dcarl_tpu_torch.planning.fast_rollout import FastEnvState, RefTables
@@ -41,9 +42,21 @@ def fast_env_state_from_numpy(src: Any, device, dtype=torch.float32
     """The lane-major carry of the JAX drivers' ``init_fn``/``run_fn``
     (``dcarl_tpu.planning.fast_rollout.FastEnvState``, any object with
     its fields) as the port's FastEnvState on ``device``."""
-    f = _fields(src)
-    out = {}
-    for name in FastEnvState._fields:
+    return FastEnvState(*_state_fields(_fields(src), FastEnvState._fields,
+                                       device, dtype))
+
+
+def env_state_from_numpy(src: Any, device, dtype=torch.float32
+                         ) -> de.EnvState:
+    """The JAX package's vmapped ``EnvState`` (every field with the env
+    batch leading; any object with its fields) as the port's batch-first
+    ``driving_env.EnvState`` on ``device``."""
+    return de.EnvState(*_state_fields(_fields(src), de.EnvState._fields,
+                                      device, dtype))
+
+
+def _state_fields(f, names, device, dtype) -> Iterator[torch.Tensor]:
+    for name in names:
         a = np.asarray(f[name])
         if name in _INT_FIELDS:
             t = torch.as_tensor(a.astype(np.int32))
@@ -51,8 +64,7 @@ def fast_env_state_from_numpy(src: Any, device, dtype=torch.float32
             t = torch.as_tensor(a.astype(bool))
         else:
             t = torch.as_tensor(np.array(a)).to(dtype)
-        out[name] = t.to(device)
-    return FastEnvState(**out)
+        yield t.to(device)
 
 
 def store_from_numpy(keys, values, valid, device

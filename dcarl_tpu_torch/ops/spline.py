@@ -4,12 +4,15 @@
 Fitting is host-side set-up, done once per driver: the tridiagonal
 system is solved by a Thomas sweep written as a Python loop over 0-d
 tensors, in the caller's dtype, so every step rounds as the JAX scan
-does.
+does.  Evaluation takes query arc lengths of any shape: one
+``searchsorted`` into the shared 1-D knot vector, then a gather of the
+segment's coefficients.  Outside the knot range it clamps to the end
+segments (the reference returns None there).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -78,9 +81,9 @@ def _cumsum_blocked(v: torch.Tensor, block: int = 16) -> torch.Tensor:
     fitted on them, then round exactly as the reference's do."""
     # 0-d tensor adds round in v's dtype at every step (torch.cumsum on
     # the CPU would accumulate a float32 input in double)
-    out, carry = [], torch.zeros((), dtype=v.dtype)
+    out, carry = [], torch.zeros((), dtype=v.dtype, device=v.device)
     for start in range(0, v.shape[0], block):
-        acc = torch.zeros((), dtype=v.dtype)
+        acc = torch.zeros((), dtype=v.dtype, device=v.device)
         for x in v[start:start + block]:
             acc = acc + x
             out.append(carry + acc)
@@ -93,3 +96,64 @@ def refpath_from_xy(x: torch.Tensor, y: torch.Tensor) -> RefPath:
     ds = torch.sqrt(torch.diff(x) ** 2 + torch.diff(y) ** 2)
     s = torch.cat([torch.zeros((1,), dtype=x.dtype), _cumsum_blocked(ds)])
     return RefPath(s=s, sx=fit_natural_cubic(s, x), sy=fit_natural_cubic(s, y))
+
+
+def refpath_to(rp: RefPath, device: torch.device) -> RefPath:
+    """A copy of a (host-fitted) path on ``device``."""
+    return RefPath(s=rp.s.to(device),
+                   sx=CubicSpline1D(*(a.to(device) for a in rp.sx)),
+                   sy=CubicSpline1D(*(a.to(device) for a in rp.sy)))
+
+
+def _segment_index(sp: CubicSpline1D, t: torch.Tensor) -> torch.Tensor:
+    """Segment of each query: ``searchsorted(side="right") - 1``, clamped
+    to [0, N-2]; the knot vector is one contiguous 1-D tensor."""
+    i = torch.searchsorted(sp.x.contiguous(), t.contiguous(), right=True) - 1
+    return torch.clamp(i, 0, sp.x.shape[0] - 2)
+
+
+def spline_eval(sp: CubicSpline1D, t: torch.Tensor) -> torch.Tensor:
+    i = _segment_index(sp, t)
+    dx = t - sp.x[i]
+    return sp.a[i] + sp.b[i] * dx + sp.c[i] * dx ** 2 + sp.d[i] * dx ** 3
+
+
+def spline_d1(sp: CubicSpline1D, t: torch.Tensor) -> torch.Tensor:
+    i = _segment_index(sp, t)
+    dx = t - sp.x[i]
+    return sp.b[i] + 2.0 * sp.c[i] * dx + 3.0 * sp.d[i] * dx ** 2
+
+
+def spline_d2(sp: CubicSpline1D, t: torch.Tensor) -> torch.Tensor:
+    i = _segment_index(sp, t)
+    dx = t - sp.x[i]
+    return 2.0 * sp.c[i] + 6.0 * sp.d[i] * dx
+
+
+def refpath_position(rp: RefPath, s: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return spline_eval(rp.sx, s), spline_eval(rp.sy, s)
+
+
+def refpath_pos_tangent(rp: RefPath, s: torch.Tensor):
+    """(x, y, dx/ds, dy/ds) with one shared segment search: the x and y
+    splines share their knot vector, so the planner's lattice evaluates
+    position and tangent from one ``searchsorted``."""
+    sx, sy = rp.sx, rp.sy
+    i = _segment_index(sx, s)
+    dt = s - sx.x[i]
+    x = sx.a[i] + (sx.b[i] + (sx.c[i] + sx.d[i] * dt) * dt) * dt
+    y = sy.a[i] + (sy.b[i] + (sy.c[i] + sy.d[i] * dt) * dt) * dt
+    dx = sx.b[i] + (2.0 * sx.c[i] + 3.0 * sx.d[i] * dt) * dt
+    dy = sy.b[i] + (2.0 * sy.c[i] + 3.0 * sy.d[i] * dt) * dt
+    return x, y, dx, dy
+
+
+def refpath_yaw(rp: RefPath, s: torch.Tensor) -> torch.Tensor:
+    return torch.atan2(spline_d1(rp.sy, s), spline_d1(rp.sx, s))
+
+
+def refpath_curvature(rp: RefPath, s: torch.Tensor) -> torch.Tensor:
+    dx, dy = spline_d1(rp.sx, s), spline_d1(rp.sy, s)
+    ddx, ddy = spline_d2(rp.sx, s), spline_d2(rp.sy, s)
+    return (ddy * dx - ddx * dy) / (dx ** 2 + dy ** 2)

@@ -130,7 +130,8 @@ class PreparedPerActionStore(NamedTuple):
     keys_t: torch.Tensor    # [OBS, n_pad] f32 obs keys, padding = _PAD
     row_act: torch.Tensor   # [n_pad] i32 action of the row; -1 adds nothing
     row_mom: torch.Tensor   # [3, n_pad] f32 (count, sum v, sum v^2) of
-    #                         the row's run of identical keys
+    #                         the row's run of identical keys, summed in
+    #                         f64 and rounded once
     rows: torch.Tensor      # [n_pad, 24] f32 the kernel's row records:
     #                         keys_t[perm], row_act's int bits, row_mom
     perm: torch.Tensor      # [OBS] i32 obs dim of record slot d
@@ -240,15 +241,23 @@ def prepare_peraction_store(
     valid_s = valid[order]
 
     # Dedup: moments are additive, so a run of identical valid rows
-    # collapses into one row carrying (count, sum v, sum v^2).
+    # collapses into one row carrying (count, sum v, sum v^2).  The sums
+    # are taken in f64 (index_add_ on the card adds in no fixed order;
+    # the f32 values and their exact f64 squares sum without rounding in
+    # f64 at these run lengths) and rounded to f32 once, so a row's
+    # record is the same bits on every run and in every store that holds
+    # its run.
     same = (keys_s[1:] == keys_s[:-1]).all(dim=1) & valid_s[1:] & valid_s[:-1]
     first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), ~same])
     seg = torch.cumsum(first.to(torch.int64), 0) - 1          # run ids
-    ones = valid_s.to(torch.float32)
-    cnt_r = torch.zeros(n, device=dev).index_add_(0, seg, ones)
-    sum_r = torch.zeros(n, device=dev).index_add_(0, seg, vals_s * ones)
-    ssq_r = torch.zeros(n, device=dev).index_add_(0, seg,
-                                                  vals_s * vals_s * ones)
+    ones = valid_s.to(torch.float64)
+    v64 = vals_s.to(torch.float64) * ones
+
+    def run_sums(x):
+        return torch.zeros(n, dtype=torch.float64,
+                           device=dev).index_add_(0, seg, x)
+
+    cnt_r, sum_r, ssq_r = run_sums(ones), run_sums(v64), run_sums(v64 * v64)
     # compact: unique rows keep their order at the front, collapsed
     # duplicates fall to the back as invalid slots
     iota = torch.arange(n, device=dev)
@@ -257,7 +266,7 @@ def prepare_peraction_store(
     valid_s = (valid_s & first)[corder]
     run_id = seg[corder]
     wmom = torch.stack([cnt_r[run_id], sum_r[run_id], ssq_r[run_id]])
-    wmom = wmom * valid_s[None, :].to(torch.float32)          # [3, N]
+    wmom = (wmom * valid_s[None, :]).to(torch.float32)        # [3, N]
     sk_s = torch.where(valid_s, keys_s[:, band_dim], _PAD)
     s2_s = torch.where(valid_s, keys_s[:, sdim2], _PAD)
 

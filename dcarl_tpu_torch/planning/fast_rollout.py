@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from dcarl_tpu_torch.config import EnvConfig, StoreConfig, WerlingConfig
+from dcarl_tpu_torch.control.controller import LR, LWB, PID_KP
 from dcarl_tpu_torch.core import rls as RLSmod
 from dcarl_tpu_torch.core.store import (FIELD_HALF_WIDTHS, _raw_moments,
                                         moments_to_stats)
@@ -34,9 +35,6 @@ from dcarl_tpu_torch.env.scenario import Scenario
 from dcarl_tpu_torch.ops import polynomial as poly
 from dcarl_tpu_torch.ops import store_kernels
 
-PID_KP = 0.25 / 3.6
-LF, LR = 1.2, 1.95
-LWB = LF + LR
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 

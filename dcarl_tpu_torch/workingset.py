@@ -96,19 +96,29 @@ def collect_local_records(n_envs: int, n_steps: int, seed: int = 7,
     carry = init_fn(n_envs, torch.Generator(device=device).manual_seed(seed))
     _, recs = run_fn(carry, n_steps,
                      torch.Generator(device=device).manual_seed(seed + 1))
-
-    done = recs.done.reshape(-1)
-    # a triggered episode locked a real state (ego y < trigger_y)
-    states = recs.recorded_state.transpose(1, 2).reshape(
-        -1, recs.recorded_state.shape[1])
-    ok = done & (states[:, 1] != 0.0)
-    k = torch.cat([states, recs.used_action.reshape(-1, 1).to(states.dtype)],
-                  dim=1)[ok]
-    v = recs.episode_return.reshape(-1)[ok]
+    k, v = episode_rows(recs.done, recs.recorded_state.transpose(1, 2),
+                        recs.used_action, recs.episode_return)
     if max_rows is not None:
         k, v = k[:max_rows], v[:max_rows]
     return (k.cpu().numpy().astype(np.float32),
             v.cpu().numpy().astype(np.float32))
+
+
+def episode_rows(done: torch.Tensor, recorded_state: torch.Tensor,
+                 used_action: torch.Tensor, episode_return: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The collected dataset's rule (dqn_value_collect.py:128-145): one
+    row {recorded_state, used_action} -> episode_return for every
+    completed episode that triggered (its locked state has ego y != 0).
+    Records are step-major: ``done``, ``used_action`` and
+    ``episode_return`` [S, B], ``recorded_state`` [S, B, 20]; rows come
+    out in that order.  Returns (keys [K, 21], values [K]) in the records'
+    dtype, on their device."""
+    states = recorded_state.reshape(-1, recorded_state.shape[-1])
+    ok = done.reshape(-1) & (states[:, 1] != 0.0)
+    k = torch.cat([states, used_action.reshape(-1, 1).to(states.dtype)],
+                  dim=1)[ok]
+    return k, episode_return.reshape(-1)[ok]
 
 
 def build_life_history(local_keys: np.ndarray, local_values: np.ndarray,

@@ -49,6 +49,16 @@ def test_port_import_pulls_in_no_jax():
         "import dcarl_tpu_torch.models.networks\n"
         "import dcarl_tpu_torch.models.segment\n"
         "import dcarl_tpu_torch.models.trustset\n"
+        "import dcarl_tpu_torch.ops.geometry\n"
+        "import dcarl_tpu_torch.ops.spline\n"
+        "import dcarl_tpu_torch.ops.kinematics\n"
+        "import dcarl_tpu_torch.ops.motion_models\n"
+        "import dcarl_tpu_torch.env.driving_env\n"
+        "import dcarl_tpu_torch.control.controller\n"
+        "import dcarl_tpu_torch.planning.predictor\n"
+        "import dcarl_tpu_torch.planning.werling\n"
+        "import dcarl_tpu_torch.planning.rollout\n"
+        "import dcarl_tpu_torch.planning.veg\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'dcarl_tpu')]\n"
         "assert not bad, bad\n")

@@ -197,6 +197,54 @@ def test_peraction_query_matches_jax_kernel(store):
     _assert_moments(got.numpy(), brute.numpy().reshape(got.shape))
 
 
+def _f64_run_block(tp, keys, values, valid):
+    """The feature block an exact prepare gives: for every live prepared
+    row, (count, sum v, sum v^2) of the valid store rows with its keys
+    (integral actions), summed in f64 and rounded once to f32."""
+    runs = {}
+    for k, v in zip(keys[valid], values[valid].astype(np.float64)):
+        c = runs.setdefault(k.tobytes(), [0.0, 0.0, 0.0])
+        c[0] += 1.0
+        c[1] += v
+        c[2] += v * v
+    keys_t, act = tp.keys_t.numpy(), tp.row_act.numpy()
+    block = np.zeros((3 * tp.num_actions, keys_t.shape[1]), np.float32)
+    for r in np.flatnonzero(act >= 0):
+        key = np.append(keys_t[:, r], np.float32(act[r])).astype(np.float32)
+        block[3 * act[r]:3 * act[r] + 3, r] = runs[key.tobytes()]
+    return block
+
+
+def test_prepare_dedup_sums_round_once_from_f64():
+    """Runs of 400 identical rows whose values span five decades: an f32
+    running sum drifts from the exact one, the prepare's f64 sums do not,
+    whatever order index_add_ adds them in."""
+    rng = np.random.default_rng(7)
+    uniq, reps, d = 24, 400, 21
+    base = rng.normal(0, 5, (uniq, d)).astype(np.float32)
+    base[:, -1] = rng.integers(0, 11, uniq)
+    keys = np.repeat(base, reps, axis=0)
+    values = (rng.normal(0, 1, len(keys))
+              * 10.0 ** rng.integers(-2, 3, len(keys))).astype(np.float32)
+    perm = rng.permutation(len(keys))
+    keys, values = keys[perm], values[perm]
+    valid = rng.random(len(keys)) < 0.9
+    w = np.asarray(DRIVING_HALF_WIDTHS, np.float32)
+    tp = K.prepare_peraction_store(_t(keys), _t(values), _t(valid), _t(w),
+                                   num_actions=11, n_tile=256)
+    exact = _f64_run_block(tp, keys, values, valid)
+    np.testing.assert_array_equal(K.feature_block(tp).numpy(), exact)
+    # the f32 running sums the prepare used to take differ in the last
+    # places: the check above can tell the two apart
+    f32 = {}
+    for k, v in zip(keys[valid], values[valid]):
+        f32[k.tobytes()] = f32.get(k.tobytes(), np.float32(0)) + v
+    exact_sums = {}
+    for k, v in zip(keys[valid], values[valid].astype(np.float64)):
+        exact_sums[k.tobytes()] = exact_sums.get(k.tobytes(), 0.0) + v
+    assert any(np.float32(exact_sums[k]) != f32[k] for k in f32)
+
+
 @pytest.mark.parametrize("store", sorted(STORES))
 def test_prepared_store_matches_jax(store):
     keys, values, valid, _, w = STORES[store]()
@@ -215,13 +263,18 @@ def test_prepared_store_matches_jax(store):
     assert float(tp.w2[0]) == float(jp.w2[0])
     # JAX's rows_cat = [obs keys; feature block; bf16-prefilter key norms].
     # The port keeps the keys and compact per-row (action, moments), from
-    # which feature_block() rebuilds the feature operand.
+    # which feature_block() rebuilds the feature operand.  Its run sums
+    # are f64 rounded once (JAX's add in f32), so they are held to the
+    # f64 oracle bit for bit and JAX's block to its counts and support.
     j_rows = np.asarray(jp.rows_cat)
     n_unique = int(j_rows[20:-1].any(axis=0).sum())
     assert n_unique > 0
     np.testing.assert_array_equal(tp.keys_t.numpy(), j_rows[:20])
-    np.testing.assert_allclose(K.feature_block(tp).numpy(), j_rows[20:-1],
-                               rtol=1e-6, atol=0)
+    block = K.feature_block(tp).numpy()
+    np.testing.assert_array_equal(block, _f64_run_block(tp, keys, values,
+                                                        valid))
+    np.testing.assert_array_equal(block[0::3], j_rows[20:-1][0::3])
+    np.testing.assert_array_equal(block != 0, j_rows[20:-1] != 0)
     assert int((tp.row_act >= 0).sum()) == n_unique
     assert (tp.keys_t[:, n:] == K._PAD).all()
     assert (tp.row_act[n:] == -1).all() and (tp.row_mom[:, n:] == 0).all()
