@@ -36,6 +36,26 @@ closed-loop CLIs (``examples/run_improvement.py``,
                 version on that store, 4,096 of the fleet's last
                 observations; the gated driver runs 65,536 envs x 50 ticks
                 against it
+  sharded       world size 1 through NCCL in this process (a one-rank
+                group; NCCL's all-gather, reduce-scatter and all-reduce
+                checked on the card): the trainer over the mesh from the
+                train path's snapshot, 32,768 envs x 20 steps, bit-equal
+                to the unsharded steps (store and integer outputs), one
+                sorted_moments launch a step; the gated driver over the
+                mesh on the trainer-built store, 65,536 envs x 50 ticks,
+                bit-equal to the unsharded run on all six outputs, one
+                peraction_moments launch a tick; then two gloo ranks on
+                the one card (parallel.launch.run_ranks): the gated driver
+                at 32,768 envs a rank against its stripe of the same
+                store (zero reset jitter from the jittered starts),
+                executed and gated actions equal to the one-rank run on
+                the whole batch, tick 0's reduced moments against one
+                launch on the whole store; the trainer at 2 x 16,384
+                envs x 20 steps, parameters bit-equal across the ranks
+                after every step, its reduced rule-column moments against
+                one sorted_moments launch on the merged store.  Rates of
+                the two-rank run are a correctness run, not a scaling
+                figure
   empty store   peraction_moments on 2^17 rows of 1e9 keys, none valid
                 (the closed loop's rule arm): zeros, bit-equal to its
                 plain version and to a second launch
@@ -60,7 +80,9 @@ closed-loop CLIs (``examples/run_improvement.py``,
   vehicle life  run_vehicle_life at WORKINGSET_r05.json's widths (65,536
                 envs, 50-tick chunks, a 2^18-row cache over a 4.5 M-row
                 history from the collector at 4,096 envs x 2,048 steps),
-                24 chunks (cut from 120) and one audit; then
+                24 chunks (cut from 120) and one audit, whose full and
+                region-masked histories must give the same bits on the
+                card (device_bitwise_full_vs_masked); then
                 peraction_moments against its plain version on a
                 sentinel-padded region cache
   trustset      models/segment.make_trustset_trainer at the JAX defaults
@@ -111,8 +133,10 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -120,6 +144,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM FP32 outside the tensor cores
+FP64_OPS_PER_S = 34e12        # H100 SXM FP64 outside the tensor cores
 MOMENT_TOL = dict(rtol=1e-4, atol=1e-3)
 SEED = 0
 
@@ -309,33 +334,35 @@ def peraction_probe(store_kernels, _cuda, settled: list):
         grid = _cuda.GRID["peraction_moments"]
 
         def work():
-            prep, queries, qorder, qext = args
+            prep, queries, qorder, qext = args[:4]
             keep = store_kernels.prune_keep(prep, qext)
             tile_q = torch.full((keep.shape[0],), float(store_kernels._QT),
                                 device=keep.device)
             tile_q[-1] = queries.shape[0] - store_kernels._QT * (keep.shape[0] - 1)
             pairs = (keep.sum(1) * tile_q).sum() * prep.sub_n
             b = queries.shape[0]
-            n_feat = 3 * prep.num_actions
-            # inputs read once: records, piece boxes and sums, queries
-            # (+ order), extrema; output
-            n_bytes = (4 * (prep.rows.numel() + prep.piece_box.numel()
-                            + prep.piece_mom.numel())
-                       + b * (20 * 4 + 8 + n_feat * 4)
+            n_act = prep.num_actions
+            # inputs read once: records, piece boxes and (f64) sums,
+            # queries (+ order), extrema; output
+            n_bytes = (4 * (prep.rows.numel() + prep.piece_box.numel())
+                       + 8 * prep.piece_mom.numel()
+                       + b * (20 * 4 + 8 + 3 * n_act * 4)
                        + 4 * (prep.kb.numel() + prep.kb2.numel()
                               + prep.kbt.numel() + qext.numel()))
             st = piece_settle(prep, queries, qorder, keep)
             settled.append(st)
             # the box test of every (query, kept piece) pair, 4 operations
-            # a dim; the piece's sums for each held pair; 2 a dim for each
+            # a dim; the piece's 3A f64 sums for each held pair (the f64
+            # adds in f32 time at the two peaks' ratio); 2 a dim for each
             # live row of the pieces a query walks (the adds of its
             # matches there are left out: a lower bound)
-            n_ops = (80.0 * st["pairs"] + n_feat * st["held"]
-                     + 40.0 * st["walk_rows"])
+            n_ops = (80.0 * st["pairs"]
+                     + 3.0 * n_act * FP32_OPS_PER_S / FP64_OPS_PER_S
+                     * st["held"] + 40.0 * st["walk_rows"])
             plan = store_kernels.peraction_plan(prep, qext)
             return (pairs, out[..., 0].sum(), n_bytes, n_ops,
-                    plan_stats(keep, plan, 4 * n_feat * store_kernels._QT,
-                               grid))
+                    plan_stats(keep, plan, store_kernels._PA_PART_BYTES
+                               * n_act * store_kernels._QT, grid))
         return work
     return probe
 
@@ -533,7 +560,7 @@ def hold_kept_launches(sk, kept: dict, what: str) -> dict:
         launches = kept["launch_peraction"]
         best = int(torch.stack([o[..., 0].sum() for _, o in launches])
                    .argmax())
-        (prep, queries, _, _), out = launches[best]
+        (prep, queries, *_), out = launches[best]
         ref = sk.peraction_moments_plain(prep, queries)
         if not bool((prep.row_act >= 0).any()):
             if not (torch.equal(out, ref) and not ref.any()):
@@ -798,6 +825,10 @@ def vehicle_life_phase(sk, _cuda, hw, gpu: str) -> None:
     ck = rep["checkpoints"][0]
     if ck["matched_counts_total"] <= 0:
         fail("vehicle life: the audit matched nothing")
+    # the per-action kernel sums in f64 and rounds once: the full history
+    # and its region-masked copy give the same bits on the card
+    if not ck["device_bitwise_full_vs_masked"]:
+        fail(f"vehicle life: full and masked stores differ on the card: {ck}")
 
     # the kernel on a sentinel-padded region cache (RegionCache.build's
     # 1e9 keys past the region rows), probes at region rows
@@ -1240,6 +1271,247 @@ def readable_phase(sk, _cuda, hw, gpu: str) -> float:
     return max(errs)
 
 
+# ---------------------------------------------------------------------------
+# The sharded phase: every sharded path at world size 1 through NCCL in this
+# process, then two gloo ranks sharing the one card (parallel.launch)
+# ---------------------------------------------------------------------------
+
+RANKS_TIMEOUT_S = 240
+
+
+def sync(dev) -> None:
+    """Wait for ``dev`` (a rank program runs on the card, or on the CPU
+    in a rehearsal)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def nccl_world_of_one(dev, tmp: str):
+    """Join a one-rank NCCL group at a ``file://`` rendezvous in ``tmp``,
+    check NCCL's all-gather, reduce-scatter and all-reduce on the card,
+    and return the group's mesh."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from dcarl_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    x = torch.arange(12, dtype=torch.float32, device=dev)
+    gathered, scattered, reduced = (torch.empty_like(x), torch.empty_like(x),
+                                    x.clone())
+    dist.all_gather_into_tensor(gathered, x)
+    dist.reduce_scatter_tensor(scattered, x)
+    dist.all_reduce(reduced)
+    torch.cuda.synchronize()
+    if not all(torch.equal(t, x) for t in (gathered, scattered, reduced)):
+        fail("sharded: NCCL collectives at world size 1 changed their input")
+    return make_mesh("env", dist.group.WORLD, dev)
+
+
+def _rank_gated(mesh, p):
+    """Rank program: this rank's half of the fleet and its stripe of the
+    store's rows through the sharded gated driver (kernel route, zero
+    reset jitter), launches counted; then tick 0's moments, the whole
+    batch against this rank's rows, reduce-scattered in f64 as the driver
+    does."""
+    from dcarl_tpu_torch import disable_tf32
+    from dcarl_tpu_torch.config import EnvConfig, driving_store_config
+    from dcarl_tpu_torch.env.driving_env import in_state_indices
+    from dcarl_tpu_torch.env.scenario import t_intersection
+    from dcarl_tpu_torch.ops import _cuda, store_kernels as sk
+    from dcarl_tpu_torch.parallel import collectives as coll
+    from dcarl_tpu_torch.parallel.sharded_store import stripe
+    from dcarl_tpu_torch.planning import fast_rollout as fr
+
+    disable_tf32()
+    dev = mesh.device
+    env_cfg, scfg = EnvConfig(reset_jitter=0.0), driving_store_config()
+    sc = t_intersection(env_cfg)
+    keys, vals, valid = (stripe(t.to(dev), mesh)
+                         for t in (p["keys"], p["values"], p["valid"]))
+    carry = fr.shard_lanes(fr.FastEnvState(*(t.to(dev) for t in p["carry"])),
+                           mesh)
+    _, run = fr.make_gated_driver_sharded(sc, mesh, env_cfg, store_cfg=scfg,
+                                          use_kernel=True)
+    _cuda.LAUNCHES.clear()
+    sync(dev)
+    t0 = time.perf_counter()
+    _, out = run(carry, p["ticks"], keys, vals, valid,
+                 generator=torch.Generator(device=dev).manual_seed(p["seed"]))
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    hw = torch.as_tensor(scfg.half_widths, dtype=torch.float32, device=dev)
+    prep = sk.prepare_peraction_store(keys, vals, valid, hw, 11)
+    obs = fr._obs_ori_soa(carry, in_state_indices(sc)).T.contiguous()
+    part = sk.query_peraction_prepared(
+        prep, coll.all_gather(obs, mesh).contiguous(),
+        out_dtype=torch.float64).reshape(-1, 3)
+    return dict(rank=mesh.rank, executed=out[4].cpu(), gated=out[5].cpu(),
+                moments=coll.reduce_scatter(part, mesh).float().cpu(),
+                launches=launches, seconds=seconds,
+                rows=int(valid.sum()), envs=int(carry.ego.shape[-1]))
+
+
+def _rank_trainer(mesh, p):
+    """Rank program: the sharded trainer (kernel route) on this rank's
+    envs, store and replay, its own generator; the replicated parameters
+    compared across the ranks after every step; then the next step's
+    rule-column moments of the whole batch (the fleet's observations and
+    512 probes at the rank's stored rows), reduce-scattered."""
+    from dcarl_tpu_torch import disable_tf32
+    from dcarl_tpu_torch.config import DCARLConfig, driving_store_config
+    from dcarl_tpu_torch.ops import _cuda, store_kernels as sk
+    from dcarl_tpu_torch.parallel import collectives as coll
+    from dcarl_tpu_torch.train_fast import make_trainer_fast, rank_seed
+
+    disable_tf32()
+    dev = mesh.device
+    scfg = driving_store_config()
+    init_fn, step_fn, learner, _ = make_trainer_fast(
+        DCARLConfig(store=scfg), batch_per_device=p["envs"],
+        store_capacity_per_device=p["capacity"],
+        replay_capacity_per_device=p["capacity"],
+        backfill_budget_per_step=p["budget"], use_kernel=True, mesh=mesh)
+    state = init_fn(p["seed"])
+    gen = torch.Generator(device=dev).manual_seed(
+        rank_seed(p["seed"] + 1, mesh.rank))
+    equal_steps, losses = 0, []
+    _cuda.LAUNCHES.clear()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(p["steps"]):
+        state, m = step_fn(state, gen)
+        losses.append(m.loss)
+        flat = torch.cat([t.reshape(-1) for t in
+                          learner.net.state_dict().values()])[None]
+        every = coll.all_gather(flat, mesh)
+        equal_steps += int(all(torch.equal(every[0], x) for x in every))
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    hw = torch.as_tensor(scfg.half_widths, dtype=torch.float32, device=dev)
+    obs = torch.cat([state.obs_ori[0].T, state.store_keys[0][:512, :-1]])
+    obs_q = coll.all_gather(obs.contiguous(), mesh)
+    q = torch.cat([obs_q, torch.zeros_like(obs_q[:, :1])], 1)[None]
+    n = int(state.store_size[0])
+    valid = torch.arange(state.store_keys.shape[1], device=dev) < n
+    part = sk.box_query_moments_grouped(state.store_keys[0],
+                                        state.store_values[0], valid, q,
+                                        hw)[0]
+    return dict(rank=mesh.rank, moments=coll.reduce_scatter(part, mesh).cpu(),
+                obs=obs.cpu(), keys=state.store_keys[0][:n].cpu(),
+                values=state.store_values[0][:n].cpu(), launches=launches,
+                seconds=seconds, equal_steps=equal_steps,
+                loss=torch.stack(losses).cpu())
+
+
+def two_rank_phase(sk, hw, carry0, store, ref_out, main_t: int,
+                   train_envs: int = 16384, train_steps: int = 20,
+                   train_capacity: int = 1 << 16):
+    """Two gloo ranks on the one card (``parallel.launch.run_ranks``):
+    the gated driver on 32,768 envs a rank against its stripe of the
+    2^18-row store, held to the one-rank run on the whole batch; the
+    trainer on 16,384 envs a rank for 20 steps, its parameters bit-equal
+    across the ranks after every step, its reduced rule-column moments
+    held to one sorted_moments launch on the merged store.  A one-card
+    correctness run: its rates are no scaling figure."""
+    from dcarl_tpu_torch.parallel.launch import run_ranks
+
+    keys, vals, valid = (t.cpu() for t in store)
+    rank_dev = "cuda:0" if hw.device.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    gated = run_ranks(_rank_gated, 2, "gloo", rank_dev,
+                      timeout_s=RANKS_TIMEOUT_S,
+                      args=({"carry": tuple(t.cpu() for t in carry0),
+                             "keys": keys, "values": vals, "valid": valid,
+                             "ticks": main_t, "seed": SEED + 9},))
+    gated_wall = time.perf_counter() - t0
+    for name, i in (("executed", 4), ("gated", 5)):
+        got = torch.cat([g[name] for g in gated], dim=1)
+        want = ref_out[i].cpu()
+        if not torch.equal(got, want):
+            tick, env = (int(x) for x in (got != want).nonzero()[0])
+            fail(f"sharded, two ranks: {name} actions differ from the "
+                 f"one-rank run on the whole batch, first at tick {tick}, "
+                 f"env {env}: {int(got[tick, env])} != "
+                 f"{int(want[tick, env])}")
+    on_card = rank_dev != "cpu"   # a CPU rehearsal runs the plain versions
+    for g in gated:
+        if on_card and g["launches"] != {"peraction_moments": main_t}:
+            fail(f"sharded, two ranks: rank {g['rank']} launches "
+                 f"{g['launches']} != {main_t} ticks")
+    from dcarl_tpu_torch.env.driving_env import in_state_indices
+    from dcarl_tpu_torch.env.scenario import t_intersection
+    from dcarl_tpu_torch.planning.fast_rollout import _obs_ori_soa
+
+    prep = sk.prepare_peraction_store(*store, hw, 11)
+    q0 = _obs_ori_soa(carry0, in_state_indices(t_intersection())).T
+    ref_m = sk.query_peraction_prepared(prep, q0.contiguous()).reshape(-1, 3)
+    got_m = torch.cat([g["moments"] for g in gated]).to(ref_m.device)
+    gated_err = compare(got_m, ref_m, "sharded_two_rank_gated_moments")
+
+    envs, steps = train_envs, train_steps
+    t0 = time.perf_counter()
+    tr = run_ranks(_rank_trainer, 2, "gloo", rank_dev,
+                   timeout_s=RANKS_TIMEOUT_S,
+                   args=({"envs": envs, "capacity": train_capacity,
+                          "budget": envs // 4, "steps": steps,
+                          "seed": SEED + 11},))
+    train_wall = time.perf_counter() - t0
+    for t in tr:
+        if on_card and t["launches"] != {"sorted_moments": steps}:
+            fail(f"sharded, two ranks: trainer rank {t['rank']} launches "
+                 f"{t['launches']} != {steps} steps")
+        if t["equal_steps"] != steps:
+            fail(f"sharded, two ranks: parameters differ across ranks "
+                 f"after {steps - t['equal_steps']} of {steps} steps")
+        if not torch.isfinite(t["loss"]).all():
+            fail("sharded, two ranks: trainer loss not finite")
+    dev = hw.device
+    if sum(len(t["keys"]) for t in tr) == 0:
+        fail("sharded, two ranks: the trainer's stores stayed empty")
+    m_keys = torch.cat([t["keys"] for t in tr]).to(dev)
+    m_vals = torch.cat([t["values"] for t in tr]).to(dev)
+    obs = torch.cat([t["obs"] for t in tr]).to(dev)
+    q = torch.cat([obs, torch.zeros_like(obs[:, :1])], 1)[None].contiguous()
+    ref_t = sk.box_query_moments_grouped(
+        m_keys, m_vals, torch.ones(len(m_keys), dtype=torch.bool, device=dev),
+        q, hw)[0]
+    got_t = torch.cat([t["moments"] for t in tr]).to(dev)
+    if ref_t[:, 0].sum() > 0:
+        train_err = compare(got_t, ref_t, "sharded_two_rank_trainer_moments")
+    elif torch.equal(got_t, ref_t):
+        train_err = 0.0
+    else:
+        fail("sharded, two ranks: the trainer's reduced moments are not the "
+             "merged store's (no match)")
+    return dict(
+        note="two gloo ranks on one card: a correctness run, not a scaling "
+             "figure",
+        gated_envs=2 * gated[0]["envs"], gated_ticks=main_t,
+        gated_rows_per_rank=[g["rows"] for g in gated],
+        gated_launches=[g["launches"].get("peraction_moments", 0)
+                        for g in gated],
+        gated_rank_seconds=[g["seconds"] for g in gated],
+        gated_env_steps_per_s=2 * gated[0]["envs"] * main_t
+        / max(g["seconds"] for g in gated),
+        gated_wall_seconds=gated_wall, gated_moments_max_abs_err=gated_err,
+        gated_actions_equal=True,
+        train_envs=2 * envs, train_steps=steps,
+        train_launches=[t["launches"].get("sorted_moments", 0) for t in tr],
+        train_rank_seconds=[t["seconds"] for t in tr],
+        train_env_steps_per_s=2 * envs * steps
+        / max(t["seconds"] for t in tr),
+        train_wall_seconds=train_wall, params_equal_every_step=True,
+        train_merged_rows=int(len(m_keys)),
+        train_matches=int(ref_t[:, 0].sum()),
+        train_moments_max_abs_err=train_err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1525,6 +1797,43 @@ def main() -> int:
          pairs_total_per_launch=float(tr_b) * tr_cap,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, gpu=gpu)
 
+    # --- sharded, world size 1 (NCCL): the trainer over a one-rank mesh
+    # from the same snapshot and generator, bit-equal to the steps above
+    nccl_tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    mesh1 = nccl_world_of_one(dev, nccl_tmp)
+    _, _, learner_s, factory_s = make_trainer_fast(
+        dcfg, batch_per_device=tr_b, store_capacity_per_device=tr_cap,
+        replay_capacity_per_device=tr_cap, backfill_budget_per_step=8192,
+        use_kernel=True, mesh=mesh1)
+    learner_s.load_state_dict(snap_learner)
+    run_sh = factory_s(timed)
+    _cuda.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_sh, ms_sh = run_sh(snapshot(snap),
+                          torch.Generator(device=dev).manual_seed(8))
+    torch.cuda.synchronize()
+    sh_train_s = time.perf_counter() - t0
+    sh_train_launches = dict(_cuda.LAUNCHES)
+    if sh_train_launches != {"sorted_moments": timed}:
+        fail(f"sharded trainer: launches {sh_train_launches} != {timed}")
+    for field in ("store_keys", "store_actions", "store_values",
+                  "store_size", "store_head", "store_total", "traj_len",
+                  "traj_act"):
+        if not torch.equal(getattr(st_sh, field), getattr(st_end, field)):
+            fail(f"sharded trainer: {field} differs from the unsharded run")
+    for field in ("done_count", "pass_count", "collision_count",
+                  "rule_fraction", "store_rows", "dropped_records"):
+        if not torch.equal(getattr(ms_sh, field), getattr(ms, field)):
+            fail(f"sharded trainer: {field} differs from the unsharded run")
+    sharded_world1 = dict(
+        backend=mesh1.backend, size=mesh1.size, train_envs=tr_b,
+        train_steps=timed, train_launches=sh_train_launches,
+        train_env_steps_per_s=tr_b * timed / sh_train_s,
+        unsharded_train_env_steps_per_s=tr_b * timed / train_s,
+        train_bit_equal=True)
+    del learner_s, factory_s, run_sh, st_sh, ms_sh
+
     # --- the sorted and brute kernels on the trainer-built store
     valid_tr = torch.arange(tr_cap, device=dev) < st_end.store_size[0]
     k_tr, v_tr = st_end.store_keys[0], st_end.store_values[0]
@@ -1685,7 +1994,49 @@ def main() -> int:
     torch.cuda.empty_cache()
     ts_launches, ts_summ, ts_gate = gated_path(
         "gated_on_trainer_store", f_keys, f_vals, f_valid, SEED + 9)
-    del f_keys, f_vals, f_valid
+
+    # --- sharded: the gated driver over the one-rank NCCL mesh against
+    # the unsharded one on the trainer-built store, then two gloo ranks
+    t_sh = time.perf_counter()
+    _, run_gs = fr.make_gated_driver_sharded(sc, mesh1, env_cfg,
+                                             store_cfg=scfg, use_kernel=True)
+    runs = {}
+    for label, fn in (("unsharded", run_g), ("sharded", run_gs)):
+        _cuda.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, o = fn(carry0, main_t, f_keys, f_vals, f_valid,
+                  generator=torch.Generator(device=dev).manual_seed(SEED + 9))
+        torch.cuda.synchronize()
+        runs[label] = (o, time.perf_counter() - t0, dict(_cuda.LAUNCHES))
+    if runs["sharded"][2] != {"peraction_moments": main_t}:
+        fail(f"sharded gated: launches {runs['sharded'][2]} != {main_t}")
+    for field, a, b in zip(("reward", "done", "passed", "collided",
+                           "executed", "gated"), runs["sharded"][0],
+                          runs["unsharded"][0]):
+        if not torch.equal(a, b):
+            fail(f"sharded gated: {field} differs from the unsharded run")
+    sharded_world1.update(
+        gated_envs=main_b, gated_ticks=main_t,
+        gated_launches=runs["sharded"][2],
+        gated_env_steps_per_s=main_b * main_t / runs["sharded"][1],
+        unsharded_gated_env_steps_per_s=main_b * main_t
+        / runs["unsharded"][1], gated_bit_equal=True)
+    # the one-rank reference of the two-rank run: zero reset jitter from
+    # the same (jittered) starts, so the ranks' reset draws never enter
+    _, run_z = fr.make_gated_driver_fast(sc, EnvConfig(reset_jitter=0.0),
+                                         store_cfg=scfg, use_kernel=True)
+    _, ref_z = run_z(carry0, main_t, f_keys, f_vals, f_valid,
+                     generator=torch.Generator(device=dev).manual_seed(
+                         SEED + 9))
+    del runs, run_gs, run_z
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(nccl_tmp, ignore_errors=True)
+    two_ranks = two_rank_phase(sk, hw, carry0, (f_keys, f_vals, f_valid),
+                               ref_z, main_t)
+    emit("sharded", world_size_1=sharded_world1, two_ranks=two_ranks,
+         seconds=time.perf_counter() - t_sh, gpu=gpu)
+    del f_keys, f_vals, f_valid, ref_z
     torch.cuda.empty_cache()
 
     # --- the closed loop: train -> deploy, persist -> reload, vehicle life

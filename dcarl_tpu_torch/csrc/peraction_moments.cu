@@ -10,7 +10,13 @@
 // query and every action a:
 //     out[q, a, :] = sum over rows r with a_r == a and |q_d - k_rd| <= w_d
 //                    for all d of (count_r, sum_r, sumsq_r)
-// in full FP32, with the exact per-dimension test of the JAX kernel.
+// with the exact per-dimension test of the JAX kernel.  Every sum adds
+// in f64 and is rounded to f32 once, at the end, so the result does not
+// depend on how the prepare cut the rows into pieces or the plan cut a
+// window into chunks: the f32 terms of a query's sums add exactly in f64
+// at these magnitudes, and the full store and any masked copy of it then
+// give the same bits.  (Counts in f32 beside f64 sums were measured
+// slower on a store whose pieces are held whole: PERF.md, C1.)
 //
 // What bounds it on the card.  The prepared store is read once per query
 // tile that keeps a piece, and its bytes (one 24-float record a row)
@@ -49,11 +55,12 @@
 //    read as float4 broadcasts; after four dims a warp leaves a row that
 //    none of its queries can still contain.
 //  * One query per thread (two were measured slower), its 20
-//    coordinates and half-widths in registers; its 3A accumulators live
-//    in shared memory laid out [3A][128] (thread-contiguous,
-//    conflict-free).  A dead query slot (past B in the last tile) is
-//    +inf, out of reach of every piece, so it never makes its block walk
-//    rows.
+//    coordinates and half-widths in registers; its 3A f64 accumulators
+//    live in shared memory laid out [3A][128] (thread-contiguous,
+//    conflict-free), which leaves room for 3 blocks an SM.  The piece
+//    summaries are f64 too, so a held piece adds its terms with no
+//    conversion.  A dead query slot (past B in the last tile) is +inf,
+//    out of reach of every piece, so it never makes its block walk rows.
 //  * The TPU kernel's bf16 distance prefilter is left out: it changes
 //    no result, and whether it pays on this card is still open
 //    (ROADMAP.md).
@@ -75,9 +82,9 @@ constexpr int REC = 24;          // floats in a row record
 constexpr int MAX_ACTIONS = 16;
 
 size_t smem_bytes(int num_actions) {
-    return ring_bytes<PIECE_N>(REC)
-        + sizeof(float) * (size_t)3 * num_actions * QT  // accumulators
-        + sizeof(int) * (2 * QT + WARPS);               // kept lists, counts
+    return ring_bytes<PIECE_N>(REC)  // a multiple of 8: the f64 sums follow
+        + sizeof(double) * (size_t)3 * num_actions * QT  // accumulators
+        + sizeof(int) * (2 * QT + WARPS);                // kept lists, counts
 }
 
 // How a query relates to a piece's live rows, from their bounding box
@@ -113,7 +120,7 @@ __global__ void __launch_bounds__(QT) peraction_main(
     const float* __restrict__ rows,      // [n_pad, REC] records
     const int* __restrict__ perm,        // [OBS] obs dim of record slot d
     const float* __restrict__ piece_box,  // [n_pad / PIECE_N, 2 OBS] box
-    const float* __restrict__ piece_mom,  // [n_pad / PIECE_N, 3A] sums
+    const double* __restrict__ piece_mom,  // [n_pad / PIECE_N, 3A] sums
     const float* __restrict__ kb,        // [2, n_sub]
     const float* __restrict__ kb2,       // [2, n_sub]
     const float* __restrict__ kbt,       // [2, n_pad / n_tile]
@@ -124,14 +131,14 @@ __global__ void __launch_bounds__(QT) peraction_main(
     const int* __restrict__ s_hi,        // [n_qt] window end
     const int* __restrict__ off,         // [n_qt + 1] chunk offsets
     int B, int n_pad, int n_tile, int num_actions, int C,
-    float* __restrict__ partial)         // [chunks, 3 * num_actions, QT]
+    double* __restrict__ partial)        // [chunks, 3 * num_actions, QT]
 {
     extern __shared__ __align__(128) unsigned char smem[];
     Ring<PIECE_N> ring;
     ring.init(smem, REC);
-    const int n_feat = 3 * num_actions;
-    float* acc = reinterpret_cast<float*>(smem + ring_bytes<PIECE_N>(REC));
-    int* klist = reinterpret_cast<int*>(acc + (size_t)n_feat * QT);  // [QT]
+    const int A = num_actions;
+    double* acc = reinterpret_cast<double*>(smem + ring_bytes<PIECE_N>(REC));
+    int* klist = reinterpret_cast<int*>(acc + (size_t)3 * A * QT);   // [QT]
     int* kwalk = klist + QT;                                         // [QT]
     int* wcnt = kwalk + QT;                                          // [WARPS]
 
@@ -188,7 +195,7 @@ __global__ void __launch_bounds__(QT) peraction_main(
             q[d] = live ? queries[qrow * OBS + __ldg(perm + d)]
                         : __int_as_float(0x7f800000);
         }
-        for (int f = 0; f < n_feat; ++f) acc[f * QT + tid] = 0.f;
+        for (int f = 0; f < 3 * A; ++f) acc[f * QT + tid] = 0.0;
         __syncthreads();
 
         // Whole pieces first: a query that holds a piece's box takes its
@@ -199,8 +206,8 @@ __global__ void __launch_bounds__(QT) peraction_main(
             const int pc = klist[j / PIECES] * PIECES + j % PIECES;
             const int how = settle(q, wr, piece_box + (size_t)pc * 2 * OBS);
             if (how == 1) {
-                const float* m = piece_mom + (size_t)pc * n_feat;
-                for (int f = 0; f < n_feat; ++f) acc[f * QT + tid] += __ldg(m + f);
+                const double* m = piece_mom + (size_t)pc * 3 * A;
+                for (int f = 0; f < 3 * A; ++f) acc[f * QT + tid] += __ldg(m + f);
             }
             if (!__syncthreads_and(how != 0)) {
                 if (tid == 0) kwalk[n_walk] = pc;
@@ -232,36 +239,43 @@ __global__ void __launch_bounds__(QT) peraction_main(
 #pragma unroll
                 for (int g = 1; g < OBS / 4; ++g) ok = ok & in_group(g, k4[g]);
                 if (ok) {
-                    float* cc = acc + 3 * a * QT + tid;
-                    cc[0] += tail.y;
-                    cc[QT] += tail.z;
-                    cc[2 * QT] += tail.w;
+                    double* cc = acc + 3 * a * QT + tid;
+                    cc[0] += (double)tail.y;
+                    cc[QT] += (double)tail.z;
+                    cc[2 * QT] += (double)tail.w;
                 }
             }
         });
 
-        float* p = partial + (size_t)c * n_feat * QT + tid;
-        for (int f = 0; f < n_feat; ++f) p[(size_t)f * QT] = acc[f * QT + tid];
+        double* ps = partial + (size_t)c * 3 * A * QT + tid;
+        for (int f = 0; f < 3 * A; ++f) ps[(size_t)f * QT] = acc[f * QT + tid];
     }
 }
 
-// Second pass: out[query] = sum of its chunk partials, in chunk order.
+// Second pass: out[query] = sum of its chunk partials, in chunk order,
+// in f64, each sum rounded to OutT once (f32; f64 for a caller that adds
+// other ranks' sums before it rounds).
+template <typename OutT>
 __global__ void __launch_bounds__(QT) peraction_sum(
-    const float* __restrict__ partial, const int* __restrict__ off,
-    const int64_t* __restrict__ qorder, int B, int n_feat,
-    float* __restrict__ out)             // [B, n_feat] (caller order)
+    const double* __restrict__ partial, const int* __restrict__ off,
+    const int64_t* __restrict__ qorder, int B, int A,
+    OutT* __restrict__ out)              // [B, A, 3] (caller order)
 {
     const int t = blockIdx.x, tid = threadIdx.x;
     const int pos = t * QT + tid;
     if (pos >= B) return;
-    float* o = out + qorder[pos] * n_feat;
+    OutT* o = out + qorder[pos] * 3 * A;
     const int c0 = off[t], c1 = off[t + 1];
-    for (int f = 0; f < n_feat; ++f) {
-        float s = 0.f;
+    for (int a = 0; a < A; ++a) {
+        double n = 0.0, s = 0.0, ss = 0.0;
         for (int c = c0; c < c1; ++c) {
-            s += partial[((size_t)c * n_feat + f) * QT + tid];
+            n += partial[((size_t)c * 3 * A + 3 * a) * QT + tid];
+            s += partial[((size_t)c * 3 * A + 3 * a + 1) * QT + tid];
+            ss += partial[((size_t)c * 3 * A + 3 * a + 2) * QT + tid];
         }
-        o[f] = s;
+        o[3 * a] = (OutT)n;
+        o[3 * a + 1] = (OutT)s;
+        o[3 * a + 2] = (OutT)ss;
     }
 }
 
@@ -272,14 +286,15 @@ __global__ void __launch_bounds__(QT) peraction_sum(
 // block count to the host int ``grid``.  The caller checks shapes, types,
 // contiguity and the device; n_pad is a multiple of n_tile, n_tile of
 // 256, 1 <= C <= 64, and ``partial`` holds ``off[n_qt]`` chunks of
-// 3 * num_actions x 128 floats.
+// 3 * num_actions x 128 doubles; ``out`` is float, or double when
+// ``out_f64``.
 extern "C" int peraction_moments(
     const void* queries, const void* qorder, const void* qext,
     const void* rows, const void* perm, const void* piece_box,
     const void* piece_mom, const void* kb, const void* kb2, const void* kbt,
     const void* w, const void* w0, const void* w2,
     const void* s_lo, const void* s_hi, const void* off,
-    int B, int n_pad, int n_tile, int num_actions, int C,
+    int B, int n_pad, int n_tile, int num_actions, int C, int out_f64,
     void* partial, void* out, void* stream, int* grid)
 {
     if (B <= 0 || num_actions < 1 || num_actions > MAX_ACTIONS
@@ -294,15 +309,22 @@ extern "C" int peraction_moments(
     peraction_main<<<*grid, QT, smem, st>>>(
         (const float*)queries, (const int64_t*)qorder, (const float*)qext,
         (const float*)rows, (const int*)perm, (const float*)piece_box,
-        (const float*)piece_mom, (const float*)kb, (const float*)kb2,
+        (const double*)piece_mom, (const float*)kb, (const float*)kb2,
         (const float*)kbt, (const float*)w, (const float*)w0,
         (const float*)w2, (const int*)s_lo, (const int*)s_hi,
-        (const int*)off, B, n_pad, n_tile, num_actions, C, (float*)partial);
+        (const int*)off, B, n_pad, n_tile, num_actions, C,
+        (double*)partial);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int n_qt = (B + QT - 1) / QT;
-    peraction_sum<<<n_qt, QT, 0, st>>>((const float*)partial,
-                                       (const int*)off, (const int64_t*)qorder,
-                                       B, 3 * num_actions, (float*)out);
+    if (out_f64) {
+        peraction_sum<double><<<n_qt, QT, 0, st>>>(
+            (const double*)partial, (const int*)off, (const int64_t*)qorder,
+            B, num_actions, (double*)out);
+    } else {
+        peraction_sum<float><<<n_qt, QT, 0, st>>>(
+            (const double*)partial, (const int*)off, (const int64_t*)qorder,
+            B, num_actions, (float*)out);
+    }
     return (int)cudaGetLastError();
 }

@@ -21,7 +21,10 @@ agent) reloads that history and deploys from it at once.
 Reports keep the JAX package's keys, so the two packages' reports compare
 key by key.  The port's random streams (``torch.Generator``) differ from
 JAX's, so its numbers are behaviour of the same loop, not the same
-draws.  Single device: ``n_devices`` must be 1.
+draws.  Over a mesh (``mesh=``, ``n_devices`` its size) the trainer
+shards envs, store and replay over the ranks (``train_fast.py``) and
+every rank gets the merged store and the same report; rank 0 alone
+writes the session files.
 """
 
 from __future__ import annotations
@@ -38,9 +41,12 @@ from dcarl_tpu_torch.config import (DCARLConfig, DQNConfig, EnvConfig,
 from dcarl_tpu_torch.device import resolve_device
 from dcarl_tpu_torch.env.scenario import t_intersection
 from dcarl_tpu_torch.planning.fast_rollout import make_gated_driver_fast
-from dcarl_tpu_torch.session import (TrainSession, seed_store_from_text,
-                                     single_device)
-from dcarl_tpu_torch.train_fast import FastTrainState, make_trainer_fast
+from dcarl_tpu_torch.parallel import collectives as coll
+from dcarl_tpu_torch.parallel.mesh import ProcessMesh
+from dcarl_tpu_torch.session import (TrainSession, check_devices,
+                                     seed_store_from_text)
+from dcarl_tpu_torch.train_fast import (FastTrainState, make_trainer_fast,
+                                        rank_seed)
 
 
 def demo_config(
@@ -80,12 +86,17 @@ def _append_history(history: Dict[str, list], metrics) -> None:
         history.setdefault(k, []).append(float(v.cpu().numpy().mean()))
 
 
-def merged_store(state: FastTrainState) -> Dict:
-    """The state's store shards merged: [S, N, D] -> [S*N, D] host arrays
-    with a per-shard valid prefix, and the live row count."""
-    keys_sh = state.store_keys.cpu().numpy()          # [S, N, D]
-    vals_sh = state.store_values.cpu().numpy()        # [S, N]
-    sizes = state.store_size.cpu().numpy()            # [S]
+def merged_store(state: FastTrainState,
+                 mesh: "ProcessMesh | None" = None) -> Dict:
+    """The store shards merged, shard-major (the ranks' shards gathered
+    over ``mesh``): [S, N, D] -> [S*N, D] host arrays with a per-shard
+    valid prefix, and the live row count."""
+    def gathered(t):
+        return (t if mesh is None else coll.all_gather(t, mesh)).cpu().numpy()
+
+    keys_sh = gathered(state.store_keys)              # [S, N, D]
+    vals_sh = gathered(state.store_values)            # [S, N]
+    sizes = gathered(state.store_size)                # [S]
     s, n, d = keys_sh.shape
     valid = np.arange(n)[None, :] < sizes[:, None]
     return {
@@ -106,6 +117,7 @@ def train_store(
     n_devices: int = 1,
     use_kernel: Optional[bool] = None,
     device: "str | torch.device | None" = None,
+    mesh: "ProcessMesh | None" = None,
     **trainer_kwargs,
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, list]]:
     """Run the integrated trainer from an empty store.
@@ -113,25 +125,27 @@ def train_store(
     Returns (store, history): ``store`` holds the merged
     keys/values/valid arrays; ``history`` per-chunk means of the training
     metrics.  ``trainer_kwargs`` go to :func:`make_trainer_fast`.  The
-    steps draw from one generator seeded ``seed + 1``; the host reads
-    the metrics once a chunk."""
-    single_device(n_devices)
-    device = resolve_device(device)
+    steps draw from one generator seeded ``seed + 1`` (each rank's own,
+    ``train_fast.rank_seed``); the host reads the metrics once a chunk.
+    ``n_devices`` must be the size of ``mesh`` (1 without one)."""
+    check_devices(n_devices, mesh)
+    device = mesh.device if mesh is not None else resolve_device(device)
     init_fn, _, _, run_factory = make_trainer_fast(
         cfg, batch_per_device=batch_per_device,
         store_capacity_per_device=store_capacity_per_device,
         replay_capacity_per_device=store_capacity_per_device,
-        use_kernel=use_kernel, device=device, **trainer_kwargs)
+        use_kernel=use_kernel, device=device, mesh=mesh, **trainer_kwargs)
     run_fn = run_factory(chunk)
     state = init_fn(seed=seed)
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    gen = torch.Generator(device=device).manual_seed(
+        rank_seed(seed + 1, 0 if mesh is None else mesh.rank))
 
     history: Dict[str, list] = {}
     for i in range(steps // chunk):
         state, metrics = run_fn(state, gen)
         _append_history(history, metrics)
         history.setdefault("step", []).append((i + 1) * chunk)
-    return merged_store(state), history
+    return merged_store(state, mesh), history
 
 
 def evaluate_gated(
@@ -208,15 +222,20 @@ def run_improvement(
     n_devices: int = 1,
     use_kernel: Optional[bool] = None,
     device: "str | torch.device | None" = None,
+    mesh: "ProcessMesh | None" = None,
     **trainer_kwargs,
 ) -> Dict:
-    """The full experiment.  Returns a JSON-serializable report."""
+    """The full experiment.  Returns a JSON-serializable report.  Over a
+    ``mesh`` the training is sharded and every rank evaluates the merged
+    store alike (the same report on every rank)."""
     cfg = cfg or demo_config()
     store, history = train_store(
         cfg, batch_per_device=batch_per_device, steps=train_steps,
         chunk=chunk, store_capacity_per_device=store_capacity_per_device,
         seed=seed, n_devices=n_devices, use_kernel=use_kernel, device=device,
-        **trainer_kwargs)
+        mesh=mesh, **trainer_kwargs)
+    if mesh is not None:
+        device = mesh.device
 
     evkw = dict(n_envs=eval_envs, n_steps=eval_steps, seed=seed + 100,
                 use_kernel=use_kernel, device=device)
@@ -275,16 +294,19 @@ def train_store_sessioned(
     use_kernel: Optional[bool] = None,
     backfill_budget_per_step: Optional[int] = None,
     device: "str | torch.device | None" = None,
+    mesh: "ProcessMesh | None" = None,
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, list], Dict[str, int]]:
     """:func:`train_store` through the cross-session lifecycle
     (``session.py``): checkpoints plus the append-only text history, and
     optionally a store seeded from a previous session's history (the
     reference's reload-on-construction, RLS.py:34-76).
 
-    Returns (store, history, session_info)."""
-    device = resolve_device(device)
+    Returns (store, history, session_info).  Over a ``mesh`` each rank
+    trains its shard and rank 0 writes the files."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     sess = TrainSession(
-        session_dir, cfg, batch_per_device=batch_per_device,
+        session_dir, cfg, n_devices=1 if mesh is None else mesh.size,
+        mesh=mesh, batch_per_device=batch_per_device,
         store_capacity_per_device=store_capacity_per_device,
         replay_capacity_per_device=store_capacity_per_device,
         use_kernel=use_kernel, device=device,
@@ -292,8 +314,9 @@ def train_store_sessioned(
     state, start_step = sess.init_or_resume(seed=seed)
     imported = 0
     if import_history_from is not None and start_step == 0:
-        state = seed_store_from_text(state, *import_history_from)
-        imported = int(state.store_size.sum())
+        state = seed_store_from_text(state, *import_history_from, mesh=mesh)
+        imported = int(state.store_size.sum()) if mesh is None else \
+            int(coll.psum(state.store_size.sum(), mesh))
         # imported rows already live in the previous session's history;
         # this session's spool appends only its OWN new evidence
         sess.mark_synced(state)
@@ -310,7 +333,8 @@ def train_store_sessioned(
                            // worst_per_step))
     run_fn = sess.run_factory(sub_chunk)
     history: Dict[str, list] = {}
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    gen = torch.Generator(device=device).manual_seed(
+        rank_seed(seed + 1, 0 if mesh is None else mesh.rank))
     for i in range(steps // sub_chunk):
         state, metrics = run_fn(state, gen)
         sess.spool(state)
@@ -326,7 +350,7 @@ def train_store_sessioned(
         "state_path": sess.state_path,
         "value_path": sess.value_path,
     }
-    return merged_store(state), history, info
+    return merged_store(state, mesh), history, info
 
 
 def run_two_session_improvement(
@@ -342,17 +366,21 @@ def run_two_session_improvement(
     use_kernel: Optional[bool] = None,
     backfill_budget_per_step: Optional[int] = None,
     device: "str | torch.device | None" = None,
+    mesh: "ProcessMesh | None" = None,
 ) -> Dict:
     """Session A trains from empty and persists {checkpoint, spooled text
     history}; session B is a fresh agent whose store is reloaded from A's
     history, is evaluated at once (the evidence transfers: the gated fleet
-    activates without retraining), then keeps training."""
+    activates without retraining), then keeps training.  Over a ``mesh``
+    the sessions train sharded."""
     cfg = cfg or demo_config()
+    if mesh is not None:
+        device = mesh.device
     kw = dict(batch_per_device=batch_per_device, chunk=chunk,
               store_capacity_per_device=store_capacity_per_device,
               use_kernel=use_kernel,
               backfill_budget_per_step=backfill_budget_per_step,
-              device=device)
+              device=device, mesh=mesh)
     evkw = dict(n_envs=eval_envs, n_steps=eval_steps, seed=seed + 100,
                 use_kernel=use_kernel, device=device)
 

@@ -29,6 +29,9 @@ from dcarl_tpu_torch.config import DQNConfig
 from dcarl_tpu_torch.models import replay as RB
 from dcarl_tpu_torch.models import trustset as TS
 from dcarl_tpu_torch.models.replay import Batch
+from dcarl_tpu_torch.parallel.collectives import pmean
+from dcarl_tpu_torch.parallel.distributed import pmean_gradients
+from dcarl_tpu_torch.parallel.mesh import ProcessMesh
 
 
 def epsilon_by_frame(frame: torch.Tensor, cfg: DQNConfig = DQNConfig()
@@ -138,15 +141,25 @@ class DQN:
         per_elem = (q_sa - target) ** 2 * batch.weights
         return per_elem.mean(), per_elem.detach() + 1e-5
 
-    def train_on(self, batch: Batch, punishment: torch.Tensor
+    def train_on(self, batch: Batch, punishment: torch.Tensor,
+                 mesh: "ProcessMesh | None" = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One Adam step on :meth:`td_loss`; returns (loss, priorities),
-        both detached and computed with the pre-step weights."""
+        both detached and computed with the pre-step weights.  Over a
+        ``mesh`` (each rank its own batch) the gradients are averaged
+        over the ranks before the step (one ``all_reduce``,
+        ``parallel.distributed.pmean_gradients``) and the returned loss
+        is the ranks' mean: every rank applies the same step."""
         loss, prios = self.td_loss(batch, punishment)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            pmean_gradients([p.grad for p in self.net.parameters()
+                             if p.grad is not None], mesh)
+            loss = pmean(loss, mesh)
         self.optimizer.step()
-        return loss.detach(), prios
+        return loss, prios
 
     def _sample(self, replay: RB.Replay, frame: torch.Tensor,
                 gumbel: torch.Tensor) -> Batch:

@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # as an int.
 _P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 SIGNATURES: Dict[str, Sequence] = {
-    "peraction_moments": (_P,) * 16 + (_I,) * 5 + (_P,) * 3 + (_IP,),
+    "peraction_moments": (_P,) * 16 + (_I,) * 6 + (_P,) * 3 + (_IP,),
     "sorted_moments": (_P,) * 7 + (_I,) * 4 + (_P,) * 3 + (_IP,),
     "box_moments": (_P,) * 7 + (_I,) * 4 + (_P,) * 3 + (_IP,),
 }

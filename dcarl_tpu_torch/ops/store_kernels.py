@@ -28,8 +28,8 @@ moments into its action's slots answers all A actions at once.
 * :func:`query_peraction_prepared` answers B queries against a prepared
   store: for CUDA tensors it launches ``csrc/peraction_moments.cu``
   (or raises); for CPU tensors it takes the plain version,
-  :func:`peraction_moments_plain`, a brute containment followed by a
-  full-FP32 feature product.
+  :func:`peraction_moments_plain`, a brute containment followed by an
+  f64 feature product rounded to f32 once, as the kernel sums.
 
 Every kernel launch first builds a :class:`Plan` on the device, with no
 host synchronisation (:func:`peraction_plan`, :func:`sorted_plan`,
@@ -59,8 +59,14 @@ _PA_MAX_CHUNK = 64  # sub-slices a per-action chunk may hold (one per thread)
 _PA_PIECE_N = 128   # rows per summarised piece (csrc/peraction_moments.cu)
 # Bound on a launch's partial-sum scratch: the chunk size C doubles until
 # the most chunks the shapes allow fit (about 280 MB at 65,536 queries x
-# 2^18 rows with 11 actions).
+# 2^18 rows with 11 actions for sorted_moments).
 _SCRATCH_BYTES = 320 << 20
+# The per-action kernel's partials are three f64 sums a (query, action),
+# twice the f32 design's bytes, so its bound is twice as large and leaves
+# the chunk size where it was (C = 32 and about 550 MB at 65,536 queries
+# x 2^18 rows).
+_PA_SCRATCH_BYTES = 2 * _SCRATCH_BYTES
+_PA_PART_BYTES = 3 * 8  # partial bytes a (query, action)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -81,9 +87,9 @@ class Plan(NamedTuple):
 
 
 def _chunk_size(n_qt: int, n_sub: int, chunk_bytes: int, c_min: int,
-                c_max: int) -> int:
+                c_max: int, scratch_bytes: int = _SCRATCH_BYTES) -> int:
     c = c_min
-    while c < c_max and n_qt * -(-n_sub // c) * chunk_bytes > _SCRATCH_BYTES:
+    while c < c_max and n_qt * -(-n_sub // c) * chunk_bytes > scratch_bytes:
         c *= 2
     return c
 
@@ -138,8 +144,8 @@ class PreparedPerActionStore(NamedTuple):
     piece_box: torch.Tensor  # [n_pad/128, 2 OBS] f32 per 128-row piece:
     #                          min, then max, of its live rows' keys
     #                          (record order); +inf / -inf with none live
-    piece_mom: torch.Tensor  # [n_pad/128, 3A] f32 per piece: the feature
-    #                          block summed over its rows
+    piece_mom: torch.Tensor  # [n_pad/128, 3A] f64 per piece: the feature
+    #                          block summed over its rows in f64, unrounded
     kb: torch.Tensor        # [2, n_pad/sub_n] band extrema per sub-slice
     kb2: torch.Tensor       # [2, n_pad/sub_n] second-dim extrema
     kbt: torch.Tensor       # [2, n_pad/n_tile] band extrema per tile
@@ -330,17 +336,18 @@ def feature_block(prep: PreparedPerActionStore) -> torch.Tensor:
 def _piece_summary(keys_r, row_act, row_mom, num_actions):
     """Per 128-row piece: the bounding box of its live rows' keys
     ([n_pieces, 2 OBS], min then max) and its feature block summed over
-    its rows ([n_pieces, 3A]).  A query whose box holds the whole
-    bounding box matches every live row of the piece, so the kernel adds
-    the sums and skips the rows."""
+    its rows in f64 ([n_pieces, 3A], not rounded: the kernel adds it to
+    its f64 sums as it is).  A query whose box holds the whole bounding
+    box matches every live row of the piece, so the kernel adds the sums
+    and skips the rows."""
     n_pad, obs_dim = keys_r.shape
     n_pc = n_pad // _PA_PIECE_N
     k = keys_r.reshape(n_pc, _PA_PIECE_N, obs_dim)
     live = (row_act >= 0).reshape(n_pc, _PA_PIECE_N, 1)
     box = torch.cat([torch.where(live, k, torch.inf).amin(1),
                      torch.where(live, k, -torch.inf).amax(1)], 1)
-    mom = _feature_block(row_act, row_mom, num_actions).reshape(
-        3 * num_actions, n_pc, _PA_PIECE_N).sum(-1).T
+    mom = _feature_block(row_act, row_mom, num_actions).to(
+        torch.float64).reshape(3 * num_actions, n_pc, _PA_PIECE_N).sum(-1).T
     return box.contiguous(), mom.contiguous()
 
 
@@ -375,17 +382,19 @@ def prune_keep(prep: PreparedPerActionStore, qext: torch.Tensor) -> torch.Tensor
 
 
 def peraction_moments_plain(prep: PreparedPerActionStore,
-                            queries: torch.Tensor) -> torch.Tensor:
+                            queries: torch.Tensor,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
     """Plain version of the kernel: [B, A, 3] moments by a brute
-    containment over every prepared row, then ``mask @ feats^T`` in full
-    FP32 (TF32 must be off on the card)."""
+    containment over every prepared row, then ``mask @ feats^T`` in f64,
+    rounded to ``out_dtype`` once, as the kernel sums."""
     mask = torch.ones((queries.shape[0], prep.keys_t.shape[1]),
                       dtype=torch.bool, device=queries.device)
     for d in range(prep.keys_t.shape[0]):
         mask &= torch.abs(queries[:, d:d + 1] - prep.keys_t[d][None, :]) \
             <= prep.w_col[d]
-    out = mask.to(torch.float32) @ feature_block(prep).T
-    return out.reshape(queries.shape[0], prep.num_actions, 3)
+    out = mask.to(torch.float64) @ feature_block(prep).to(torch.float64).T
+    return out.to(out_dtype).reshape(queries.shape[0], prep.num_actions, 3)
 
 
 def _check_cuda_operands(prep: PreparedPerActionStore, queries: torch.Tensor):
@@ -413,9 +422,11 @@ def _check_cuda_operands(prep: PreparedPerActionStore, queries: torch.Tensor):
             raise ValueError(f"prepared {name} must be contiguous")
     if prep.row_act.dtype != torch.int32 or prep.perm.dtype != torch.int32:
         raise TypeError("prepared row_act and perm must be int32")
-    for name in ("rows", "piece_box", "piece_mom"):
+    for name in ("rows", "piece_box"):
         if getattr(prep, name).dtype != torch.float32:
             raise TypeError(f"prepared {name} must be float32")
+    if prep.piece_mom.dtype != torch.float64:
+        raise TypeError("prepared piece_mom must be float64")
     n_pad = prep.keys_t.shape[1]
     n_pc = n_pad // _PA_PIECE_N
     if prep.rows.shape != (n_pad, _PA_REC) \
@@ -442,8 +453,8 @@ def peraction_plan(prep: PreparedPerActionStore, qext: torch.Tensor,
     n_sub = prep.kb.shape[1]
     n_qt = qext.shape[1]
     if chunk is None:
-        chunk = _chunk_size(n_qt, n_sub, 4 * 3 * prep.num_actions * _QT,
-                            8, _PA_MAX_CHUNK)
+        chunk = _chunk_size(n_qt, n_sub, _PA_PART_BYTES * prep.num_actions
+                            * _QT, 8, _PA_MAX_CHUNK, _PA_SCRATCH_BYTES)
     env_hi = torch.cummax(prep.kb[1], 0).values + prep.w0
     env_lo = torch.flip(torch.cummin(torch.flip(prep.kb[0], (0,)), 0).values,
                         (0,)) - prep.w0
@@ -454,16 +465,18 @@ def peraction_plan(prep: PreparedPerActionStore, qext: torch.Tensor,
 
 
 def launch_peraction(prep: PreparedPerActionStore, queries: torch.Tensor,
-                     qorder: torch.Tensor, qext: torch.Tensor) -> torch.Tensor:
+                     qorder: torch.Tensor, qext: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plan, then launch ``csrc/peraction_moments.cu`` (both passes) on
-    the current stream: [B, A, 3] moments of the (checked) queries."""
+    the current stream: [B, A, 3] moments of the (checked) queries, the
+    f64 sums rounded to ``out_dtype`` (float32 or float64)."""
     b = queries.shape[0]
     num_actions = prep.num_actions
     dev = queries.device
     plan = peraction_plan(prep, qext)
     partial = torch.empty((plan.max_chunks, 3 * num_actions, _QT),
-                          dtype=torch.float32, device=dev)
-    out = torch.empty((b, 3 * num_actions), dtype=torch.float32, device=dev)
+                          dtype=torch.float64, device=dev)
+    out = torch.empty((b, 3 * num_actions), dtype=out_dtype, device=dev)
     fn = _cuda.load("peraction_moments").peraction_moments
     p, grid = ctypes.c_void_p, ctypes.c_int(0)
     err = fn(p(queries.data_ptr()), p(qorder.data_ptr()), p(qext.data_ptr()),
@@ -474,7 +487,8 @@ def launch_peraction(prep: PreparedPerActionStore, queries: torch.Tensor,
              p(prep.w0.data_ptr()), p(prep.w2.data_ptr()),
              p(plan.s_lo.data_ptr()), p(plan.s_hi.data_ptr()),
              p(plan.off.data_ptr()), b, prep.keys_t.shape[1], prep.n_tile,
-             num_actions, plan.chunk, p(partial.data_ptr()),
+             num_actions, plan.chunk, int(out_dtype == torch.float64),
+             p(partial.data_ptr()),
              p(out.data_ptr()), p(torch.cuda.current_stream(dev).cuda_stream),
              ctypes.byref(grid))
     if err != 0:
@@ -485,19 +499,29 @@ def launch_peraction(prep: PreparedPerActionStore, queries: torch.Tensor,
 
 
 def query_peraction_prepared(prep: PreparedPerActionStore,
-                             queries: torch.Tensor) -> torch.Tensor:
+                             queries: torch.Tensor,
+                             out_dtype: torch.dtype = torch.float32
+                             ) -> torch.Tensor:
     """[B, A, 3] per-action moments of B observation queries [B, OBS]
-    against a prepared store.  CUDA tensors go through the kernel (no
-    fallback); CPU tensors through :func:`peraction_moments_plain`."""
+    against a prepared store, summed in f64 and rounded to ``out_dtype``
+    once (float64 for a caller that adds several stores' moments before
+    it rounds: the sharded gated driver).  CUDA tensors go through the
+    kernel (no fallback); CPU tensors through
+    :func:`peraction_moments_plain`."""
+    if out_dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"out_dtype must be float32 or float64, got "
+                        f"{out_dtype}")
     if queries.device.type == "cpu":
-        return peraction_moments_plain(prep, queries.to(torch.float32))
+        return peraction_moments_plain(prep, queries.to(torch.float32),
+                                       out_dtype)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     _check_cuda_operands(prep, queries)
     if queries.shape[0] == 0:
-        return torch.zeros((0, prep.num_actions, 3), device=queries.device)
+        return torch.zeros((0, prep.num_actions, 3), dtype=out_dtype,
+                           device=queries.device)
     qorder, qext = query_operands(prep, queries)
-    return launch_peraction(prep, queries, qorder, qext)
+    return launch_peraction(prep, queries, qorder, qext, out_dtype)
 
 
 def box_query_moments_peraction(

@@ -34,6 +34,8 @@ from dcarl_tpu_torch.env import driving_env as de
 from dcarl_tpu_torch.env.scenario import Scenario
 from dcarl_tpu_torch.ops import polynomial as poly
 from dcarl_tpu_torch.ops import store_kernels
+from dcarl_tpu_torch.parallel import collectives as coll
+from dcarl_tpu_torch.parallel.mesh import ProcessMesh
 
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
@@ -761,6 +763,36 @@ def make_collector_fast(sc: Scenario,
     return init_fn, run_fn
 
 
+def shard_lanes(x, mesh: ProcessMesh):
+    """This rank's block of the env (last) axis of a lane-major tensor or
+    state (every field [..., B]); B must divide by the mesh size."""
+    def take(t):
+        b = t.shape[-1]
+        if b % mesh.size:
+            raise ValueError(f"env batch {b} does not divide by the mesh "
+                             f"size {mesh.size}")
+        k = b // mesh.size
+        return t[..., mesh.rank * k:(mesh.rank + 1) * k].contiguous()
+    if isinstance(x, torch.Tensor):
+        return take(x)
+    return type(x)(*(take(t) for t in x))
+
+
+def shard_rule_driver(init_fn, run_fn, mesh: ProcessMesh):
+    """The lane-major rule driver over a mesh (``fast_rollout.py:823``).
+    It couples no envs, so each rank steps its own block of the batch with
+    no collective.  Returns ``(init_sharded, run_fn)``:
+    ``init_sharded(batch, generator)`` makes the ``batch``-env start from
+    ``generator`` (the same on every rank) and keeps this rank's block
+    of ``batch / S`` envs; ``run_fn`` is the unsharded one, on that
+    block (its auto-reset draws are the rank's own, as JAX's shards draw
+    theirs in blocks)."""
+    def init_sharded(batch: int, generator: torch.Generator):
+        return shard_lanes(init_fn(batch, generator), mesh)
+
+    return init_sharded, run_fn
+
+
 def make_gated_driver_fast(sc: Scenario,
                            env_cfg: EnvConfig = EnvConfig(),
                            wcfg: WerlingConfig = WerlingConfig(),
@@ -768,7 +800,8 @@ def make_gated_driver_fast(sc: Scenario,
                            dtype: torch.dtype = torch.float32,
                            device: "str | torch.device | None" = None,
                            use_kernel: "bool | None" = None,
-                           with_query_offset: bool = False):
+                           with_query_offset: bool = False,
+                           mesh: "ProcessMesh | None" = None):
     """Lane-major confidence-gated deployment driver (DCARL_agent.py
     predict loop + RLS.act_test, RLS.py:120-157): plan the lattice,
     query the fixed store for every candidate action of every env, run
@@ -792,7 +825,23 @@ def make_gated_driver_fast(sc: Scenario,
 
     ``with_query_offset=True`` adds a ``query_offset`` [state_dim]
     argument, added to every observation before the store query only
-    (the vehicle-life frame alignment of ``workingset.py``)."""
+    (the vehicle-life frame alignment of ``workingset.py``).
+
+    ``mesh`` (JAX's ``psum_axis`` path, :func:`make_gated_driver_sharded`):
+    the carry holds this rank's block of the envs and the store arguments
+    this rank's rows.  Each tick every env's gate sees the whole store:
+    the ranks' [B_local, 20] queries are all-gathered, the rank's rows
+    answer the whole [B_global, 20] batch (one kernel launch, against the
+    local rows prepared once a run), and a reduce-scatter of the
+    [B_global * A, 3] partial moments leaves each rank the sums of its
+    own envs.  (A sum of local-batch moments would add moments of
+    different envs that share a local index.)  On the kernel route the
+    ranks' sums cross in f64 and are rounded to f32 once, after the
+    reduce-scatter: a gate then sees the bits of the one-rank run (f32
+    partials summed across ranks flipped a decision in a 65,536-env run
+    on the card).  The brute route reduces f32 moments, as JAX's does."""
+    if mesh is not None:
+        device = mesh.device
     device, sa, idx, tab, init_fn = _setup(sc, env_cfg, dtype, device)
     scfg = store_cfg or StoreConfig()
     if use_kernel is None:
@@ -812,6 +861,7 @@ def make_gated_driver_fast(sc: Scenario,
             "matches, which the per-action query kernel cannot express; use "
             "an exact-match width (< 0.5, e.g. the reference's 0.1)")
     half_widths = torch.as_tensor(hw, dtype=dtype, device=device)
+    sum_dtype = torch.float32 if mesh is None else torch.float64
 
     def run_fn(carry: FastEnvState, n_steps: int, store_keys, store_values,
                store_valid, query_offset=None, *, generator: torch.Generator):
@@ -837,12 +887,16 @@ def make_gated_driver_fast(sc: Scenario,
             if query_offset is not None:
                 obs_bf = obs_bf + torch.as_tensor(
                     query_offset, device=device).to(obs_bf.dtype)[None, :]
+            obs_q = obs_bf if mesh is None else coll.all_gather(obs_bf, mesh)
             if use_kernel:
                 moments = store_kernels.query_peraction_prepared(
-                    prep, obs_bf.to(torch.float32).contiguous()).reshape(-1, 3)
+                    prep, obs_q.to(torch.float32).contiguous(),
+                    out_dtype=sum_dtype).reshape(-1, 3)
             else:
-                moments = _raw_moments(keys_w, vals_w, store_valid, obs_bf,
+                moments = _raw_moments(keys_w, vals_w, store_valid, obs_q,
                                        half_widths, num_actions)
+            if mesh is not None:
+                moments = coll.reduce_scatter(moments, mesh).to(torch.float32)
             qs = moments_to_stats(moments)
             stats = RLSmod.ActionStats(
                 count=qs.count.reshape(b, num_actions).to(dtype),
@@ -858,3 +912,31 @@ def make_gated_driver_fast(sc: Scenario,
         return state, tuple(torch.stack(o) for o in zip(*outs))
 
     return init_fn, run_fn
+
+
+def make_gated_driver_sharded(sc: Scenario, mesh: ProcessMesh,
+                              env_cfg: EnvConfig = EnvConfig(),
+                              wcfg: WerlingConfig = WerlingConfig(),
+                              store_cfg: "StoreConfig | None" = None,
+                              dtype: torch.dtype = torch.float32,
+                              use_kernel: "bool | None" = None):
+    """The gated driver over a mesh (``fast_rollout.py:1061``): envs and
+    store rows both shard over the ranks.  Returns ``(init_sharded,
+    run_fn)``: ``init_sharded(batch, generator)`` makes the ``batch``-env
+    start from ``generator`` (the same on every rank) and keeps this
+    rank's block; ``run_fn`` is :func:`make_gated_driver_fast`'s with
+    ``mesh``, taking this rank's store rows.  One [B_local, 20]
+    all-gather and one [B_global * A, 3] reduce-scatter a tick.
+
+    On the concatenated batch and the concatenated rows the integer gate
+    outputs equal the one-rank driver's: on the kernel route the ranks'
+    f64 sums are added before the one rounding to f32, and on the brute
+    route (JAX's) the moments agree to f32 reduction order.  Auto-resets
+    draw from each rank's own generator,
+    so runs in which envs finish are equal in distribution only, as in
+    JAX's per-shard blocks."""
+    init_fn, run_fn = make_gated_driver_fast(
+        sc, env_cfg, wcfg, store_cfg=store_cfg, dtype=dtype,
+        device=mesh.device, use_kernel=use_kernel, mesh=mesh)
+    init_sharded, _ = shard_rule_driver(init_fn, run_fn, mesh)
+    return init_sharded, run_fn

@@ -12,19 +12,28 @@ reuses); the learner half (Q-network, replay, TD update) is batch-first.
 On CUDA the store query runs through the sorted-band kernel
 (``csrc/sorted_moments.cu``, once per step) on the action-0 column.
 
-Single device.  The state keeps the JAX state's leading shard axis, of
-size 1, on every per-shard field, so the two map field by field
-(``interop.fast_train_state_from_numpy``); the JAX step's collectives
-(``all_gather``, ``psum_scatter``, ``pmean``, ``psum``) are identities
-at world size 1 and have no counterpart here.
+Over a mesh (``mesh=``, one rank a device, :mod:`dcarl_tpu_torch.parallel`)
+each rank steps its own block of envs, its own store shard and its own
+replay; the learner is replicated.  The state keeps the JAX state's
+leading shard axis, of size 1 on each rank, so the two map field by
+field (``interop.fast_train_state_from_numpy``; the JAX layout, leading
+axis = world size, is assembled only where a checkpoint is written).
+The JAX step's collectives are those of ``parallel/collectives.py``:
+the rule-column query all-gathers the observations, asks the rank's
+rows for the whole batch and reduce-scatters the moments (every env's
+gate sees the whole store); the gradients and the loss go through one
+``pmean``, the metrics through ``psum`` / ``pmean``.  On one rank (or
+with no mesh) each is the identity and issues nothing.
 
 The learner's weights, target weights and Adam moments live in the
 ``DQN`` object returned beside the step and change in place each step;
 ``FastTrainState`` holds the rest, functionally (each step returns new
 tensors).  Every random input of a step but the env's auto-reset
 jitter comes in through :class:`TrainDraws`, so a test can feed the JAX
-package's draws; ``step_fn`` makes them from a ``torch.Generator``.
-Nothing in a step waits on the device.
+package's draws; ``step_fn`` makes them from a ``torch.Generator``,
+which on rank r of a mesh is the rank's own (:func:`rank_seed`, the
+counterpart of JAX's ``fold_in(key, axis_index)``).  Nothing in a step
+waits on the device.
 """
 
 from __future__ import annotations
@@ -44,8 +53,10 @@ from dcarl_tpu_torch.models import dqn as DQ
 from dcarl_tpu_torch.models import replay as RB
 from dcarl_tpu_torch.models.networks import AttentionQNet
 from dcarl_tpu_torch.ops import store_kernels
+from dcarl_tpu_torch.parallel import collectives as coll
+from dcarl_tpu_torch.parallel.mesh import ProcessMesh
 from dcarl_tpu_torch.planning import fast_rollout as FR
-from dcarl_tpu_torch.train import StepMetrics
+from dcarl_tpu_torch.train import StepMetrics, reduce_metrics
 
 
 class FastTrainState(NamedTuple):
@@ -91,6 +102,27 @@ def _shard0(x):
     return type(x)(*(t[0] for t in x))
 
 
+def make_draws(generator: torch.Generator, b: int, num_actions: int, scfg,
+               dq, replay_capacity: int, device) -> TrainDraws:
+    """One step's :class:`TrainDraws` for ``b`` envs from ``generator``."""
+    u = torch.rand((3, b), generator=generator, device=device)
+    return TrainDraws(
+        eps_uniform=u[0],
+        random_action=torch.randint(0, num_actions, (b,),
+                                    generator=generator, device=device),
+        gate_uniform=scfg.explore_low
+        + u[1] * (scfg.explore_high - scfg.explore_low),
+        gumbel=RB.gumbel_noise((dq.batch_size, replay_capacity), generator,
+                               device=device))
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s step generator: ``seed`` itself on
+    rank 0 (so one rank draws as an unsharded run does), a distinct
+    stream on every other rank."""
+    return (seed + rank * 0x9E3779B97F4A7C15) % (1 << 63)
+
+
 def _compact(rows: torch.Tensor, dest: torch.Tensor, k: int) -> torch.Tensor:
     """[k, ...] rows at their ``dest`` positions, zeros elsewhere; a dest
     of ``k`` drops its row."""
@@ -110,6 +142,7 @@ def make_trainer_fast(
     init_step_offset: bool = False,
     dtype: torch.dtype = torch.float32,
     device: "str | torch.device | None" = None,
+    mesh: "ProcessMesh | None" = None,
 ):
     """Build ``(init_fn, step_fn, learner, run_fn_factory)``:
 
@@ -133,7 +166,15 @@ def make_trainer_fast(
     one contiguous [B + budget] block per step with sentinel keys for
     invalid rows.  ``init_step_offset`` staggers each env's first
     episode by a random initial step count; in ``value_mode="episode"``
-    the records of those truncated first episodes are dropped."""
+    the records of those truncated first episodes are dropped.
+
+    ``mesh``: this rank's trainer of a sharded one (``batch_per_device``
+    envs, ``store_capacity_per_device`` rows and its replay on the rank,
+    the learner replicated; ``device`` is the mesh's).  ``init_fn(seed)``
+    draws the starts of all S x B envs as JAX does and keeps the rank's
+    block; pass each rank a generator of its own (:func:`rank_seed`)."""
+    if mesh is not None:
+        device = mesh.device
     env_cfg, wcfg, scfg = cfg.env, cfg.werling, cfg.store
     if scfg.value_mode == "episode" \
             and scfg.n_step_window < env_cfg.max_episode_steps:
@@ -168,13 +209,17 @@ def make_trainer_fast(
     learner = DQ.DQN(make_net(0), cfg=dq)
 
     # ------------------------------------------------------------------
+    n_shards = 1 if mesh is None else mesh.size
+
     def init_fn(seed: int = 0) -> FastTrainState:
         gen = torch.Generator(device=device).manual_seed(seed)
-        env = env_init(b, gen)
+        env = env_init(n_shards * b, gen)
         if init_step_offset:
             env = env._replace(step_count=torch.randint(
-                0, env_cfg.max_episode_steps, (b,), generator=gen,
+                0, env_cfg.max_episode_steps, (n_shards * b,), generator=gen,
                 device=device, dtype=torch.int32))
+        if mesh is not None:
+            env = FR.shard_lanes(env, mesh)
         learner.reset(make_net(seed))
         w = scfg.n_step_window
 
@@ -197,30 +242,28 @@ def make_trainer_fast(
 
     # ------------------------------------------------------------------
     def draw(generator: torch.Generator) -> TrainDraws:
-        u = torch.rand((3, b), generator=generator, device=device)
-        return TrainDraws(
-            eps_uniform=u[0],
-            random_action=torch.randint(0, num_actions, (b,),
-                                        generator=generator, device=device),
-            gate_uniform=scfg.explore_low
-            + u[1] * (scfg.explore_high - scfg.explore_low),
-            gumbel=RB.gumbel_noise((dq.batch_size, replay_capacity_per_device),
-                                   generator, device=device))
+        return make_draws(generator, b, num_actions, scfg, dq,
+                          replay_capacity_per_device, device)
 
     def query_rule_column(store: ConfidenceStore, obs_bf: torch.Tensor
                           ) -> torch.Tensor:
         """[B, 3] moments of the keys obs || 0.  TRAIN mode reads only the
         rule action's statistics (should_use_rule), so only the action-0
-        column is queried."""
+        column is queried.  Over a mesh: the whole batch's observations
+        against this rank's rows, reduce-scattered back to its envs."""
         valid = ST.store_valid(store)
-        zeros = torch.zeros((obs_bf.shape[0], 1), dtype=obs_bf.dtype,
+        obs_q = obs_bf if mesh is None else coll.all_gather(obs_bf, mesh)
+        zeros = torch.zeros((obs_q.shape[0], 1), dtype=obs_q.dtype,
                             device=device)
         if use_kernel:
-            queries_g = torch.cat([obs_bf, zeros], dim=1)[None]  # [1, B, D]
-            return store_kernels.box_query_moments_grouped(
+            queries_g = torch.cat([obs_q, zeros], dim=1)[None]  # [1, B, D]
+            moments = store_kernels.box_query_moments_grouped(
                 store.keys, store.values, valid, queries_g, half_widths)[0]
-        return _raw_moments(store.keys, store.values, valid,
-                            torch.cat([obs_bf, zeros], dim=1), half_widths)
+        else:
+            moments = _raw_moments(store.keys, store.values, valid,
+                                   torch.cat([obs_q, zeros], dim=1),
+                                   half_widths)
+        return moments if mesh is None else coll.reduce_scatter(moments, mesh)
 
     def with_draws(state: FastTrainState, draws: TrainDraws,
                    generator: torch.Generator
@@ -304,12 +347,12 @@ def make_trainer_fast(
         batch = RB.replay_sample(replay, draws.gumbel,
                                  alpha=dq.priority_alpha, beta=beta)
         loss, prios = learner.train_on(
-            batch, torch.zeros(dq.batch_size, device=device))
+            batch, torch.zeros(dq.batch_size, device=device), mesh=mesh)
         replay = RB.replay_update_priorities(replay, batch.indices, prios)
         frame = (state.frame + 1).to(torch.int32)
         learner.update_target((frame % dq.target_update_every) == 0)
 
-        metrics = StepMetrics(
+        metrics = reduce_metrics(StepMetrics(
             reward_mean=reward.mean(),
             done_count=done.sum(),
             pass_count=(env2.passed & done).sum(),
@@ -317,7 +360,7 @@ def make_trainer_fast(
             loss=loss,
             rule_fraction=(env_action == 0).to(torch.float32).mean(),
             store_rows=new_store.size,
-            dropped_records=dropped)
+            dropped_records=dropped), mesh)
         new_state = FastTrainState(
             env=_lead(env2), obs_ori=obs2[None],
             traj_obs=bufs[0][None], traj_act=bufs[1][None],
@@ -352,3 +395,4 @@ def make_trainer_fast(
         return run_fn
 
     return init_fn, step_fn, learner, run_fn_factory
+

@@ -263,5 +263,5 @@ def test_entry_points_refuse_a_quiet_cpu_run(monkeypatch):
     _, cfg = _cfgs()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         timp.evaluate_gated(cfg, None, n_envs=2, n_steps=1)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="mesh has 1 rank"):
         timp.train_store(cfg, n_devices=2, device="cpu")

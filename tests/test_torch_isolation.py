@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of ``dcarl_tpu_torch``, and
-not ``chip_smoke.py``, imports JAX or the JAX package."""
+"""The PyTorch port stands alone: no module of ``dcarl_tpu_torch``, not
+``chip_smoke.py`` and not the rank programs that spawned ranks import
+(``tests/torch_rank_programs.py``) imports JAX or the JAX package."""
 
 import ast
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "dcarl_tpu")
 PORT_FILES = sorted((ROOT / "dcarl_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_rank_programs.py"]
 
 
 def _imported_roots(path: Path):
@@ -59,6 +60,15 @@ def test_port_import_pulls_in_no_jax():
         "import dcarl_tpu_torch.planning.werling\n"
         "import dcarl_tpu_torch.planning.rollout\n"
         "import dcarl_tpu_torch.planning.veg\n"
+        "import dcarl_tpu_torch.train\n"
+        "import dcarl_tpu_torch.parallel.mesh\n"
+        "import dcarl_tpu_torch.parallel.collectives\n"
+        "import dcarl_tpu_torch.parallel.distributed\n"
+        "import dcarl_tpu_torch.parallel.sharded_store\n"
+        "import dcarl_tpu_torch.parallel.normalize\n"
+        "import dcarl_tpu_torch.parallel.launch\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_rank_programs\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'dcarl_tpu')]\n"
         "assert not bad, bad\n")

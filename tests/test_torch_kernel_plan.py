@@ -269,9 +269,15 @@ def test_piece_summary_bounds_the_live_rows(store):
         else:
             assert torch.equal(prep.piece_box[pc, :20], k.amin(0))
             assert torch.equal(prep.piece_box[pc, 20:], k.amax(0))
-    feats = K.feature_block(prep).reshape(33, n_pc, 128)
-    torch.testing.assert_close(prep.piece_mom, feats.sum(-1).T, rtol=0,
-                               atol=0)
+    # the piece sums, recomputed from the row records: the rows' f32
+    # moments summed per action in f64, unrounded
+    act = prep.rows[:, 20].view(torch.int32).long().reshape(n_pc, 128)
+    mom = prep.rows[:, 21:].double().reshape(n_pc, 128, 3)
+    onehot = (act[..., None] == torch.arange(11)).double()  # [n_pc, 128, A]
+    per = torch.einsum("prm,pra->pam", mom, onehot)          # [n_pc, A, 3]
+    assert prep.piece_mom.dtype == torch.float64
+    torch.testing.assert_close(prep.piece_mom, per.reshape(n_pc, 33),
+                               rtol=1e-15, atol=0)
 
 
 @pytest.mark.parametrize("seed,chunk", [(0, 1), (1, 3), (2, None),
@@ -282,7 +288,7 @@ def test_chunked_peraction_walk_matches_plain(seed, chunk):
     holds a 128-row piece's live-row box takes its sums, one out of reach
     takes nothing, the others test its records (keys in record order,
     actions, moments); the f32 partials are summed per query in chunk
-    order."""
+    order (in f64, rounded once)."""
     keys, values, valid, queries, _ = _prune_inputs(
         3 if seed == "lockstep" else seed)
     if seed == "lockstep":  # a fleet in lockstep: rows and queries packed
@@ -304,15 +310,16 @@ def test_chunked_peraction_walk_matches_plain(seed, chunk):
     act = prep.rows[:, 20].view(torch.int32).long()
     onehot = (act[:, None] == torch.arange(11)[None]).float()     # [n, A]
     feats = (onehot[:, :, None] * prep.rows[:, None, 21:]).reshape(-1, 33)
+    feats = feats.double()
     b = obs.shape[0]
-    out = torch.zeros((b, 33))
+    out = torch.zeros((b, 33), dtype=torch.float64)
     off = plan.off.long()
     for t in range(plan.s_lo.shape[0]):
         qs = slice(t * K._QT, min(b, (t + 1) * K._QT))
         for c in range(int(off[t]), int(off[t + 1])):
             s0 = int(plan.s_lo[t]) + (c - int(off[t])) * plan.chunk
             s1 = min(s0 + plan.chunk, int(plan.s_hi[t]))
-            part = torch.zeros((qs.stop - qs.start, 33))
+            part = torch.zeros((qs.stop - qs.start, 33), dtype=torch.float64)
             pieces = [pc for s in range(s0, s1) if keep[t, s]
                       for pc in (2 * s, 2 * s + 1)]
             for pc in pieces:
@@ -331,12 +338,56 @@ def test_chunked_peraction_walk_matches_plain(seed, chunk):
                 for dd in range(20):
                     mask &= (qs_all[qs, dd, None]
                              - prep.rows[r, dd][None]).abs() <= wp[dd]
-                part += mask.float() @ feats[r]
+                part += mask.double() @ feats[r]
             out[qs] += part
-    got = torch.empty_like(out).index_copy_(0, qorder, out).reshape(b, 11, 3)
+    got = torch.empty_like(out).index_copy_(0, qorder, out).float().reshape(
+        b, 11, 3)
     ref = K.peraction_moments_plain(prep, obs)
     if seed == "lockstep":  # the whole-sub-slice path is taken
         assert n_held > 0
     assert ref[..., 0].sum() > 0
     assert torch.equal(got[..., 0], ref[..., 0])
     torch.testing.assert_close(got[..., 1:], ref[..., 1:], **MOMENT_TOL)
+
+
+def test_peraction_plain_sums_in_f64_rounded_once():
+    """The per-action plain version (and so the kernel it holds) sums
+    the rows' f32 moments in f64 and rounds to f32 once: equal, bit for
+    bit, to a float64 recomputation from the row records, and the same
+    bits from a store that also holds rows no query reaches (the full
+    store against a masked one, the vehicle-life audit's comparison)."""
+    keys, values, valid, queries, w = _prune_inputs(4)
+    # values over five decades, where f32 running sums round differently
+    # in different orders
+    rng = np.random.default_rng(4)
+    values = (values * 10.0 ** rng.integers(-2, 3, len(values))
+              ).astype(np.float32)
+    obs = _t(queries[:, :-1])
+    prep = K.prepare_peraction_store(_t(keys), _t(values), _t(valid), _t(w),
+                                     num_actions=11, n_tile=256)
+    got = K.peraction_moments_plain(prep, obs)
+    assert got.dtype == torch.float32 and got[..., 0].sum() > 0
+    # the f64 output (a sharded caller's, which adds other ranks' sums
+    # first) rounds to the same bits
+    wide = K.query_peraction_prepared(prep, obs, out_dtype=torch.float64)
+    assert wide.dtype == torch.float64 and torch.equal(wide.float(), got)
+    mask = np.ones((len(queries), prep.keys_t.shape[1]), bool)
+    kt, wc = prep.keys_t.numpy(), prep.w_col.numpy()
+    for d in range(20):
+        mask &= np.abs(queries[:, d:d + 1] - kt[d][None]) <= wc[d]
+    act = prep.row_act.numpy()
+    mom = prep.row_mom.numpy().astype(np.float64)          # [3, n_pad]
+    want = np.zeros((len(queries), 11, 3))
+    for a in range(11):
+        sel = mask & (act == a)[None]
+        want[:, a] = sel.astype(np.float64) @ mom.T
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+    # the same store with far rows added: the matched rows sit in other
+    # pieces and sort positions, the moments keep their bits
+    far = keys.copy()
+    far[:, 1] += 1.0e4
+    both = K.prepare_peraction_store(
+        _t(np.concatenate([keys, far])), _t(np.concatenate([values, values])),
+        _t(np.concatenate([valid, valid])), _t(w), num_actions=11,
+        n_tile=256)
+    assert torch.equal(K.peraction_moments_plain(both, obs), got)

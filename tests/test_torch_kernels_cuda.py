@@ -374,4 +374,28 @@ def test_malformed_records_are_rejected(cuda):
             piece_box=prep.piece_box[:-1].contiguous()), q)
     with pytest.raises(TypeError):
         K.query_peraction_prepared(prep._replace(
-            piece_mom=prep.piece_mom.double()), q)
+            piece_mom=prep.piece_mom.float()), q)
+
+
+def test_full_and_masked_stores_agree_bit_for_bit(cuda):
+    """The kernel sums in f64 and rounds once, so a store and its copy
+    with the rows no query reaches masked out give the same bits (the
+    vehicle-life audit's device_bitwise_full_vs_masked), though the
+    prepare cuts the two into different pieces."""
+    rng = np.random.default_rng(7)
+    keys, values, valid, obs, w = _store(rng, 20000, 2048)
+    values = (values * 10.0 ** rng.integers(-2, 3, len(values))
+              ).astype(np.float32)
+    q = torch.as_tensor(obs, device=cuda)
+    t = [torch.as_tensor(x, device=cuda) for x in (keys, values, valid, w)]
+    full = K.prepare_peraction_store(t[0], t[1], t[2], t[3], num_actions=11)
+    got = K.query_peraction_prepared(full, q)
+    assert got[..., 0].sum() > 0
+    reach = (torch.abs(t[0][:, None, :20] - q[None, :, :])
+             <= t[3][:20]).all(-1).any(1)
+    masked = K.prepare_peraction_store(t[0], t[1], t[2] & reach, t[3],
+                                       num_actions=11)
+    assert torch.equal(K.query_peraction_prepared(masked, q), got)
+    assert torch.equal(got, K.peraction_moments_plain(full, q))
+    wide = K.query_peraction_prepared(full, q, out_dtype=torch.float64)
+    assert wide.dtype == torch.float64 and torch.equal(wide.float(), got)

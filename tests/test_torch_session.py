@@ -208,5 +208,7 @@ def test_port_history_loads_into_jax(tmp_path):
 
 
 def test_session_is_single_device(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """Without a mesh the session runs on one device: n_devices must be
+    the mesh's size."""
+    with pytest.raises(ValueError, match="mesh has 1 rank"):
         TrainSession(str(tmp_path), CFG, n_devices=2, **TRAINER_KW)
