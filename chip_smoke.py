@@ -97,8 +97,8 @@ closed-loop CLIs (``examples/run_improvement.py``,
                 its queries against the plain version; the golden
                 confidence core on a 20,000-row stream, the card against
                 the CPU, the golden core on a one-state 20,000-row
-                stream on the card, and running_update_batch over 4,096
-                streams
+                stream on the card against the CPU, and
+                running_update_batch over 4,096 streams
   readable      the readable batch-first drivers (planning/rollout.py)
                 against the lane-major ones, float64, 1,024 envs x 300
                 ticks at reset_jitter 0 from jittered starts: the rule
@@ -112,6 +112,27 @@ closed-loop CLIs (``examples/run_improvement.py``,
                 queries): bit-equal to each other and within tolerance of
                 the plain version; the readable and the fast rule driver
                 timed in float32 at 65,536 envs x 50 ticks
+  lane          the multilane world (MultiLaneEnvConfig(): 2 lanes, 8
+                vehicles, 5 Hz): the rule loop at 65,536 envs x 200 ticks;
+                StoreConfig()'s 2^17-row store filled by a behaviour
+                policy (rule half the time) at 2,048 envs x 128 ticks,
+                n-step returns, the ring wrapping once; the gated loop
+                (wrap_state -> all_action_stats -> act_test ->
+                decision_from_discrete_action) at 65,536 envs x 50 ticks,
+                one sorted_moments launch (524,288 queries, D = 21) a
+                tick; the first tick's launch against the plain version
+                on 4,096 envs (counts exact, sums within rtol 1e-4 / atol
+                1e-3, equal gated actions) and again bit-equal; a replay
+                times each launch
+  field         16,384 egos with 8 tracked objects each on a 2-lane loop
+                map, 50 ticks at 5 Hz of window_static_map ->
+                update_map_state -> lateral_decision -> wrap_state ->
+                get_trajectory -> get_safeguard_speed -> path buffer and
+                route hazard; 256 egos of every fifth tick rerun on the
+                CPU (integer outputs equal, reals within rtol 1e-5 / atol
+                1e-4); an OpenDrive network parsed in the script,
+                LocalHdMap -> update_map_state for 1,024 egos, held to
+                the CPU the same way
 
 Each rate comes from a run without probes; a replay of the same run then
 times each launch and reports its plan (kept and window sub-slices per
@@ -126,18 +147,21 @@ Prints one line per phase, a JSON line of kernel numbers, and last
 without a CUDA device or without the package beside it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only lane,field   # build, then those phases
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -1082,18 +1106,25 @@ def trustset_phase(sk, _cuda, gpu: str) -> tuple:
                                rtol=1e-10, atol=0)):
         fail("trustset golden: the card's golden run differs from the CPU's")
     lap("golden")
-    # a one-state stream: one wave a row, so 20,000 waves
+    # a one-state stream (Simulation_1's shape): every row shares one
+    # table row; the card against the CPU
     ds1 = sampling.generate(torch.Generator(device=dev).manual_seed(SEED + 27),
                             state_num=1, size=20_000)
     cap1 = C.required_capacity(ds1.data.cpu().numpy(), 1, 11)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, out1 = C.golden_run(ds1.data, ds1.action_values, action_num=11,
-                           capacity=cap1, device="cuda")
-    torch.cuda.synchronize()
-    one_state_s = time.perf_counter() - t0
-    if out1.tsrl_action.shape != (20_000,):
-        fail("trustset golden: the one-state stream gave a misshapen result")
+    one_state = {}
+    for where in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out1 = C.golden_run(ds1.data, ds1.action_values, action_num=11,
+                               capacity=cap1, device=where)
+        torch.cuda.synchronize()
+        one_state[where] = (time.perf_counter() - t0, out1)
+    one_state_s = one_state["cuda"][0]
+    out1, out1_c = one_state["cuda"][1], one_state["cpu"][1]
+    if out1.tsrl_action.shape != (20_000,) or not torch.equal(
+            out1.tsrl_action.cpu(), out1_c.tsrl_action):
+        fail("trustset golden: the one-state stream's decisions differ "
+             "between the card and the CPU")
     lap("golden_one_state")
     sgen = torch.Generator(device=dev).manual_seed(SEED + 26)
     streams = sampling.generate(sgen, size=4096 * 1000).data.reshape(4096,
@@ -1148,6 +1179,9 @@ def trustset_phase(sk, _cuda, gpu: str) -> tuple:
     emit("golden", rows=20_000, capacity=cap,
          cuda_seconds=golden["cuda"][0], cpu_seconds=golden["cpu"][0],
          one_state_rows=20_000, one_state_cuda_seconds=one_state_s,
+         one_state_cpu_seconds=one_state["cpu"][0],
+         one_state_activation_row=int(torch.argmax(
+             (out1_c.tsrl_action != 0).to(torch.uint8))),
          activated_states=int((tab_c.activation_step >= 0).sum()),
          decisions_equal=True,
          max_rel_tsrl_diff=float(((tab_g.tsrl.cpu() - tab_c.tsrl).abs()
@@ -1512,7 +1546,546 @@ def two_rank_phase(sk, hw, carry0, store, ref_out, main_t: int,
         train_moments_max_abs_err=train_err)
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# The lane-level field stack: the multilane world, the RLS gate through
+# sorted_moments at D = 21, cognition -> decision -> trajectory ->
+# safeguard on a loop map, and an OpenDrive map
+# ---------------------------------------------------------------------------
+
+# MultiLaneEnvConfig()'s world at these fleet sizes
+LANE_SIZES = dict(rule_envs=65536, rule_ticks=200, fill_envs=2048,
+                  fill_ticks=128, capacity=1 << 17, gate_envs=65536,
+                  gate_ticks=50, check_envs=4096)
+FIELD_SIZES = dict(egos=16384, objects=8, ticks=50, window=256,
+                   check_egos=256, check_every=5, hd_egos=1024)
+
+
+def lane_phase(sk, _cuda, gpu: str, dev, sizes=LANE_SIZES) -> dict:
+    """The multilane world (``env/multilane_env.py``) and its RLS gate:
+
+    1. rule run: ``to_multilane_state -> lateral_decision ->
+       step_autoreset`` (the field loop of tests/test_lane_stack.py:152);
+    2. store fill: ``StoreConfig()``'s 2^17-row store from a behaviour
+       policy (action 0, the rule, with probability 0.5, else uniform in
+       1-7), records ``wrap_state || action`` with their n-step returns
+       (``traj_push_lane``, reward 1 a surviving tick), the ring wrapping
+       once;
+    3. gated run: ``wrap_state -> all_action_stats -> act_test ->
+       decision_from_discrete_action -> step_autoreset``, one
+       ``sorted_moments`` launch a tick at D = 21; the first tick's
+       launch held against the plain version on ``check_envs`` envs
+       (counts exact, sums within rtol 1e-4 / atol 1e-3, equal gated
+       actions under ``StoreConfig()`` and with the gate opened wide),
+       and again bit-equal; a replay times each launch.
+
+    On a CPU ``dev`` (a rehearsal at small sizes) the gate takes the
+    kernel's plain version and no launch is counted.  Returns the kernel
+    numbers of the gate."""
+    from dcarl_tpu_torch.config import StoreConfig
+    from dcarl_tpu_torch.core import rls as RLS
+    from dcarl_tpu_torch.core import store as ST
+    from dcarl_tpu_torch.env import multilane_env as ML
+    from dcarl_tpu_torch.planning import decision as DEC
+    from dcarl_tpu_torch.planning.lane_utility import lateral_decision
+
+    cuda = dev.type == "cuda"
+    cfg, scfg = ML.MultiLaneEnvConfig(), StoreConfig()
+    hw = torch.tensor(ST.FIELD_HALF_WIDTHS, dtype=torch.float32, device=dev)
+    n_act = scfg.num_candidate_actions
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    t_phase = time.perf_counter()
+
+    def counters():
+        return {k: torch.zeros((), dtype=torch.int64, device=dev)
+                for k in ("done", "collided", "left_road", "gated")}
+
+    def tally(c, st, a=None):
+        c["done"] += st.done.sum()
+        c["collided"] += st.collided.sum()
+        c["left_road"] += st.left_road.sum()
+        if a is not None:
+            c["gated"] += (a > 0).sum()
+
+    def rates(c, n):
+        return {f"{k}_rate": float(v) / n for k, v in c.items()}
+
+    # 1. the rule run
+    b, t = sizes["rule_envs"], sizes["rule_ticks"]
+    st = ML.reset(b, gen, cfg, device=dev)
+    c_rule = counters()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(t):
+        lane, speed = lateral_decision(ML.to_multilane_state(st, cfg))
+        st, _, _ = ML.step_autoreset(st, lane, speed, gen, cfg)
+        tally(c_rule, st)
+    sync(dev)
+    rule_s = time.perf_counter() - t0
+    if not torch.isfinite(st.ego_s).all() or int(c_rule["done"]) == 0:
+        fail("lane rule run: non-finite state or no episode ended")
+
+    # 2. the store fill
+    fb, ft = sizes["fill_envs"], sizes["fill_ticks"]
+    ncfg = StoreConfig(value_mode="nstep")
+    w = ncfg.n_step_window
+    cap = sizes["capacity"]          # StoreConfig().capacity at full size
+    store = ST.store_init(cap, scfg.key_dim, device=dev)
+    st = ML.reset(fb, gen, cfg, device=dev)
+    buf = (torch.zeros((w, scfg.key_dim - 1, fb), device=dev),
+           torch.zeros((w, fb), device=dev), torch.zeros((w, fb), device=dev),
+           torch.zeros((fb,), dtype=torch.int32, device=dev))
+    inserted = torch.zeros((), dtype=torch.int64, device=dev)
+    rule_taken = torch.zeros((), dtype=torch.int64, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(ft):
+        m = ML.to_multilane_state(st, cfg)
+        obs = DEC.wrap_state(m)
+        rule = torch.rand((fb,), generator=gen, device=dev) < 0.5
+        a = torch.where(rule, 0, torch.randint(1, n_act, (fb,), generator=gen,
+                                               device=dev))
+        d = DEC.decision_from_discrete_action(m, a)
+        st, r, done = ML.step_autoreset(st, d.target_lane_index,
+                                        d.target_speed, gen, cfg)
+        buf, recs = RLS.traj_push_lane(*buf, obs.T, a, r, done, ncfg)
+        store = ST.store_insert(
+            store, recs.keys.permute(0, 2, 1).reshape(-1, scfg.key_dim),
+            recs.actions.reshape(-1), recs.values.reshape(-1),
+            recs.valid.reshape(-1))
+        inserted += recs.valid.sum()
+        rule_taken += rule.sum()
+    sync(dev)
+    fill_s = time.perf_counter() - t0
+    valid = ST.store_valid(store)
+    if int(store.size) != cap or not cap < int(inserted) < 2 * cap \
+            or not torch.isfinite(store.values).all():
+        fail(f"lane store fill: {int(inserted)} records for a {cap}-row ring "
+             "(it must wrap once) or non-finite values")
+    vals = store.values[valid]
+
+    # 3. the gated run; first the first tick's launch against the plain
+    # version
+    gb, gt, ce = sizes["gate_envs"], sizes["gate_ticks"], sizes["check_envs"]
+    st0 = ML.reset(gb, torch.Generator(device=dev).manual_seed(SEED + 31),
+                   cfg, device=dev)
+    keys0 = RLS.candidate_keys(DEC.wrap_state(ML.to_multilane_state(st0, cfg)),
+                               n_act).reshape(-1, scfg.key_dim).contiguous()
+    ops, qorder = sk.sorted_query_operands(store.keys, store.values, valid,
+                                           keys0, hw)
+    out = sk.sorted_moments(ops)
+    sync(dev)
+    if not torch.equal(sk.sorted_moments(ops), out):
+        fail("lane gate: two sorted_moments launches differ")
+    pos = torch.empty_like(qorder)
+    pos[qorder] = torch.arange(qorder.shape[0], device=dev)
+    sub = pos[:ce * n_act]                       # band positions, env order
+    chunk = 2048
+
+    def plain_sub():
+        return torch.cat([sk.sorted_moments_plain(ops._replace(
+            q_t=ops.q_t[:, sub[i:i + chunk]].contiguous()))
+            for i in range(0, sub.shape[0], chunk)])
+
+    ref = plain_sub()
+    got = out[sub]
+    err = compare(got, ref, "lane_gate")
+    gates = {}
+    for label, gcfg in (("store_config", scfg),
+                        ("open", StoreConfig(rule_good_thres=float("inf")))):
+        acts = [RLS.act_test(RLS.ActionStats(*(f.reshape(ce, n_act) for f in
+                                               ST.moments_to_stats(mom))),
+                             gcfg) for mom in (got, ref)]
+        if not torch.equal(acts[0], acts[1]):
+            fail(f"lane gate ({label}): the kernel's moments and the plain "
+                 "version's gate different actions")
+        gates[label] = float((acts[0] > 0).float().mean())
+    if cuda:
+        ms = cuda_ms(lambda: sk.sorted_moments(ops))
+        plain_ms = cuda_ms(plain_sub, reps=1)
+        sub_ops, _ = sk.sorted_query_operands(store.keys, store.values, valid,
+                                              keys0[:ce * n_act], hw)
+        sub_ms = cuda_ms(lambda: sk.sorted_moments(sub_ops))
+    else:
+        ms = plain_ms = sub_ms = float("nan")
+    keep = sk.sorted_prune_keep(ops)
+
+    def gated_run(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        s, c = st0, counters()
+        for _ in range(gt):
+            m = ML.to_multilane_state(s, cfg)
+            a = RLS.act_test(RLS.all_action_stats(
+                store, DEC.wrap_state(m), hw, n_act, use_kernel=True), scfg)
+            d = DEC.decision_from_discrete_action(m, a)
+            s, _, _ = ML.step_autoreset(s, d.target_lane_index,
+                                        d.target_speed, g, cfg)
+            tally(c, s, a)
+        return s, c
+
+    _cuda.LAUNCHES.clear()
+    sync(dev)
+    t0 = time.perf_counter()
+    st_g, c_gate = gated_run(SEED + 32)
+    sync(dev)
+    gate_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    if cuda and launches != {"sorted_moments": gt}:
+        fail(f"lane gate: kernel launches {launches} != {gt} ticks")
+    if not torch.isfinite(st_g.ego_s).all():
+        fail("lane gate: non-finite state")
+    summ = {}
+    if cuda:
+        record = []
+        with timed_launches(sk, "launch_sorted", record,
+                            sorted_probe(sk, _cuda)):
+            sync(dev)
+            t0 = time.perf_counter()
+            st_r, c_r = gated_run(SEED + 32)
+            sync(dev)
+            replay_s = time.perf_counter() - t0
+        if not torch.equal(st_r.ego_s, st_g.ego_s):
+            fail("lane gate: the replay differs from the counted run")
+        summ = summarize(record)
+        summ["replay_env_steps_per_s"] = gb * gt / replay_s
+        summ["kernel_share_of_replay"] = summ["kernel_ms_sum"] / (replay_s * 1e3)
+    emit("lane", rule=dict(envs=b, ticks=t, seconds=rule_s,
+                           env_steps_per_s=b * t / rule_s,
+                           **rates(c_rule, b * t)),
+         fill=dict(envs=fb, ticks=ft, seconds=fill_s, records=int(inserted),
+                   store_rows=int(store.size), capacity=cap,
+                   rule_share=float(rule_taken) / (fb * ft),
+                   value_mean=float(vals.mean()), value_min=float(vals.min()),
+                   value_max=float(vals.max())),
+         gate=dict(envs=gb, ticks=gt, queries_per_launch=int(keys0.shape[0]),
+                   key_dim=scfg.key_dim, store_rows=int(valid.sum()),
+                   seconds=gate_s, env_steps_per_s=gb * gt / gate_s,
+                   launches=launches, activation_share=rates(
+                       c_gate, gb * gt)["gated_rate"],
+                   **{k: v for k, v in rates(c_gate, gb * gt).items()
+                      if k != "gated_rate"}),
+         first_tick=dict(check_envs=ce, queries=int(sub.shape[0]),
+                         max_abs_err=err, matches=int(ref[:, 0].sum()),
+                         matched_query_share=float((ref[:, 0] > 0).float()
+                                                   .mean()),
+                         counts_exact=True, bit_equal_repeat=True,
+                         activation_share=gates, actions_equal=True,
+                         kernel_ms=ms, kernel_ms_check_queries=sub_ms,
+                         plain_ms_check_queries=plain_ms,
+                         kept_subslice_share=float(keep.float().mean()),
+                         band_dim_w=float(ops.w0)),
+         **summ, seconds=time.perf_counter() - t_phase, gpu=gpu)
+    return dict(launches=launches.get("sorted_moments", 0), max_abs_err=err,
+                ms=summ.get("kernel_ms_mean", ms), plain_ms=plain_ms,
+                plain_queries=int(sub.shape[0]),
+                bound_ms=summ.get("bound_ms_mean"),
+                bound_by=summ.get("bound_by"))
+
+
+XODR = """<?xml version="1.0"?>
+<OpenDRIVE>
+  <road id="1" length="100" junction="-1">
+    <link><successor elementType="junction" elementId="10"/></link>
+    <planView><geometry s="0" x="0" y="0" hdg="0" length="100"/></planView>
+    <lanes><laneSection s="0"><right>
+      <lane id="-1" type="driving"><width sOffset="0" a="3.5"/></lane>
+      <lane id="-2" type="driving"><width sOffset="0" a="3.5"/></lane>
+    </right></laneSection></lanes>
+    <type s="0" type="town"><speed max="54" unit="km/h"/></type>
+  </road>
+  <road id="5" length="10" junction="10">
+    <link><successor elementType="road" elementId="2"/></link>
+    <planView><geometry s="0" x="100" y="0" hdg="0" length="10"/></planView>
+    <lanes><laneSection s="0"><right>
+      <lane id="-1" type="driving"><width sOffset="0" a="3.5"/></lane>
+    </right></laneSection></lanes>
+  </road>
+  <road id="2" length="100" junction="-1">
+    <link><predecessor elementType="junction" elementId="10"/></link>
+    <planView><geometry s="0" x="110" y="0" hdg="0" length="100"/></planView>
+    <lanes><laneSection s="0">
+      <right><lane id="-1" type="driving"><width sOffset="0" a="3.5"/></lane></right>
+      <left><lane id="1" type="driving"><width sOffset="0" a="3.5"/></lane></left>
+    </laneSection></lanes>
+  </road>
+  <junction id="10">
+    <connection id="0" incomingRoad="1" connectingRoad="5">
+      <laneLink from="-1" to="-1"/>
+    </connection>
+  </junction>
+</OpenDRIVE>
+"""
+
+
+class FieldWorld(NamedTuple):
+    """The field phase's simulated world on the loop map: each ego and
+    each tracked object drives around the loop at a continuous lane
+    index (0 = outer lane) and an angle."""
+
+    theta: torch.Tensor      # [B] ego angle on the loop
+    lane: torch.Tensor       # [B] continuous lane index
+    v: torch.Tensor          # [B] speed
+    obj_theta: torch.Tensor  # [B, K]
+    obj_lane: torch.Tensor   # [B, K] (integer lanes)
+    obj_v: torch.Tensor      # [B, K]
+    obj_valid: torch.Tensor  # [B, K] bool
+
+
+def field_world(b: int, k: int, gen, dev) -> FieldWorld:
+    def u(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    theta = u((b,), 0.0, 2 * math.pi)
+    return FieldWorld(
+        theta=theta,
+        lane=torch.randint(0, 2, (b,), generator=gen, device=dev).float(),
+        v=u((b,), 5.0, 12.0),
+        obj_theta=theta[:, None] + u((b, k), -0.15, 0.15),
+        obj_lane=torch.randint(0, 2, (b, k), generator=gen, device=dev).float(),
+        obj_v=u((b, k), 4.0, 12.0),
+        obj_valid=torch.rand((b, k), generator=gen, device=dev) < 0.9)
+
+
+def field_poses(wd: FieldWorld, radius: float, lane_sep: float):
+    """The ego pose and the tracked-object table of a world."""
+    from dcarl_tpu_torch.cognition.locator import EgoPose, TrackedObjects
+
+    def pose(theta, lane, v):
+        r = radius - lane_sep * lane
+        c, s = torch.cos(theta), torch.sin(theta)
+        return r * c, r * s, -v * s, v * c, theta + math.pi / 2
+
+    ego = EgoPose(*pose(wd.theta, wd.lane, wd.v))
+    return ego, TrackedObjects(*pose(wd.obj_theta, wd.obj_lane, wd.obj_v),
+                               valid=wd.obj_valid)
+
+
+def field_tick(lmap, route_line, route, pb, ego, objs, window: int):
+    """One 5 Hz tick of the field stack for a batch of egos: the local map
+    (``window_static_map``), the world model (``update_map_state``), the
+    rule decision (``lateral_decision``), the RL state (``wrap_state``),
+    the local trajectory on the target lane's window (``get_trajectory``),
+    the reachable-set speed cap (``get_safeguard_speed``, 8 scales), the
+    reference-path buffer and the route's lead-vehicle hazard.  Returns
+    (outputs, path buffer', route')."""
+    from dcarl_tpu_torch.cognition.locator import update_map_state
+    from dcarl_tpu_torch.cognition.path_buffer import path_buffer_update
+    from dcarl_tpu_torch.navigation import route as R
+    from dcarl_tpu_torch.navigation.map_provider import window_static_map
+    from dcarl_tpu_torch.planning.decision import wrap_state
+    from dcarl_tpu_torch.planning.lane_utility import lateral_decision
+    from dcarl_tpu_torch.planning.local_trajectory import get_trajectory
+    from dcarl_tpu_torch.planning.safeguard import get_safeguard_speed
+
+    smap = window_static_map(lmap, ego.x, ego.y, window=window)
+    mmap, model, behaviors = update_map_state(smap, ego, objs)
+    lane, speed = lateral_decision(mmap)
+    obs = wrap_state(mmap)
+    tgt = torch.clamp(lane, 0, smap.num_lanes - 1).to(torch.int64)
+    center = torch.gather(smap.lanes, 1, tgt[:, None, None, None].expand(
+        -1, 1, window, 2))[:, 0]
+    traj = get_trajectory(center, ego.x, ego.y, ego.yaw, speed,
+                          mmap.ego_lane_index, tgt.to(speed.dtype), n_out=64)
+    obstacles = torch.stack([objs.x, objs.y, objs.vx, objs.vy, objs.yaw], -1)
+    v_safe = get_safeguard_speed(traj.points,
+                                 speed[:, None].expand(-1, 64).contiguous(),
+                                 obstacles, objs.valid)
+    pb, _, _, junction = path_buffer_update(pb, route_line, ego.x, ego.y,
+                                            torch.hypot(ego.vx, ego.vy))
+    route = R.advance(route, ego.x, ego.y)
+    hazard = R.hazard_vehicle_ahead(route, ego.x, ego.y,
+                                    torch.stack([objs.x, objs.y], -1),
+                                    objs.valid)
+    out = dict(model=model, lane_rounded=torch.round(mmap.ego_lane_index),
+               target_lane=lane, lane_change=traj.lane_change,
+               behaviors=behaviors, front_exists=mmap.front.exists,
+               stopped=v_safe[:, 0] == 0, hazard=hazard, junction=junction,
+               cursor=pb.cursor, route_cursor=route.cursor,
+               ego_lane_index=mmap.ego_lane_index, front_s=mmap.front.s,
+               rear_s=mmap.rear.s, target_speed=speed, obs=obs,
+               points=traj.points, v_safe=v_safe)
+    return out, pb, route
+
+
+FIELD_INTEGER = ("model", "lane_rounded", "target_lane", "lane_change",
+                 "behaviors", "front_exists", "stopped", "hazard", "junction",
+                 "cursor", "route_cursor")
+
+
+def field_move(wd: FieldWorld, v_cmd, lane_cmd, radius, lane_sep,
+               dt: float = 0.2) -> FieldWorld:
+    """The world one tick on: each ego tracks its speed command and slews
+    toward its target lane at one lane a second; the objects keep their
+    lane and speed."""
+    v = torch.clamp(wd.v + torch.clamp(v_cmd - wd.v, -4.0 * dt, 2.5 * dt),
+                    0.0, 30.0)
+    lane = torch.clamp(wd.lane + torch.clamp(lane_cmd.to(wd.lane.dtype)
+                                             - wd.lane, -dt, dt), 0.0, 1.0)
+    return wd._replace(
+        theta=wd.theta + v * dt / (radius - lane_sep * lane), lane=lane, v=v,
+        obj_theta=wd.obj_theta + wd.obj_v * dt
+        / (radius - lane_sep * wd.obj_lane))
+
+
+def _field_compare(got: dict, ref: dict, what: str) -> float:
+    """Integer outputs equal, real ones within rtol 1e-5 / atol 1e-4;
+    returns the largest real difference."""
+    worst = 0.0
+    for k, r in ref.items():
+        g = got[k].cpu()
+        if k in FIELD_INTEGER:
+            if not torch.equal(g, r):
+                n = int((g != r).sum())
+                fail(f"{what}: {k} differs from the CPU run in {n} entries")
+        else:
+            if not torch.allclose(g, r, rtol=1e-5, atol=1e-4):
+                fail(f"{what}: {k} differs from the CPU run beyond "
+                     "rtol 1e-5 / atol 1e-4")
+            worst = max(worst, float((g - r).abs().max()))
+    return worst
+
+
+def field_phase(gpu: str, dev, sizes=FIELD_SIZES) -> None:
+    """Cognition -> decision -> trajectory -> safeguard for a fleet of
+    egos on ``synthetic_loop_map(n_lanes=2, n_points=1024, radius=200)``,
+    each with ``objects`` tracked objects, ``ticks`` ticks at 5 Hz
+    (:func:`field_tick`), timed without probes; a replay keeps the first
+    ``check_egos`` egos' inputs and outputs every ``check_every`` ticks and
+    the same ticks rerun on the CPU must give equal integer outputs and
+    real ones within rtol 1e-5 / atol 1e-4.  Then the OpenDrive leg:
+    ``parse_opendrive`` of a two-road-and-junction network,
+    ``LocalHdMap`` -> ``update_map_state`` for ``hd_egos`` egos, held
+    against the CPU the same way."""
+    from dcarl_tpu_torch.cognition.locator import (EgoPose, TrackedObjects,
+                                                   update_map_state)
+    from dcarl_tpu_torch.cognition.path_buffer import path_buffer_init
+    from dcarl_tpu_torch.navigation import route as R
+    from dcarl_tpu_torch.navigation.map_provider import synthetic_loop_map
+    from dcarl_tpu_torch.navigation.opendrive import LocalHdMap, parse_opendrive
+
+    radius, sep = 200.0, 3.5
+    b, k, t, win = (sizes[x] for x in ("egos", "objects", "ticks", "window"))
+    nc, every = sizes["check_egos"], sizes["check_every"]
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+
+    def setup(where, n):
+        lmap = synthetic_loop_map(n_lanes=2, n_points=1024, radius=radius,
+                                  lane_sep=sep, device=where)
+        line = torch.cat([lmap.loops[0], lmap.loops[0][:1]])   # closed
+        route = R.make_route(line.cpu().numpy(), batch_shape=(n,),
+                             device=where)
+        return lmap, line, route
+
+    lmap, line, route0 = setup(dev, b)
+    world0 = field_world(b, k, torch.Generator(device=dev).manual_seed(
+        SEED + 40), dev)
+    pb0 = path_buffer_init((b,), device=dev)
+
+    def cut(nt):
+        return type(nt)(*(x[:nc].cpu() for x in nt))
+
+    def run(keep: bool):
+        wd, pb, route = world0, pb0, route0
+        kept = []
+        for i in range(t):
+            ego, objs = field_poses(wd, radius, sep)
+            inputs = (cut(ego), cut(objs), cut(pb), route.cursor[:nc].cpu())
+            out, pb, route = field_tick(lmap, line, route, pb, ego, objs, win)
+            if keep and i % every == 0:
+                kept.append(inputs + ({key: v[:nc] for key, v in
+                                       out.items()},))
+            # the reference's safeguard node passes the decision through
+            # (reachable_set:17-69): the world follows the decision's
+            # speed, the cap is computed and reported
+            wd = field_move(wd, out["target_speed"], out["target_lane"],
+                            radius, sep)
+        return wd, out, kept
+
+    sync(dev)
+    t0 = time.perf_counter()
+    wd_end, out_end, _ = run(False)
+    sync(dev)
+    run_s = time.perf_counter() - t0
+    if not all(torch.isfinite(v).all() for v in (out_end["v_safe"],
+                                                 out_end["obs"],
+                                                 out_end["points"])):
+        fail("field: non-finite outputs")
+    _, _, kept = run(True)
+
+    # the same ticks on the CPU from the kept inputs
+    lmap_c, line_c, route_c = setup(cpu, nc)
+    worst = 0.0
+    t0 = time.perf_counter()
+    for ego, objs, pb, cursor, got in kept:
+        ref, _, _ = field_tick(lmap_c, line_c, route_c._replace(cursor=cursor),
+                               pb, ego, objs, win)
+        worst = max(worst, _field_compare(got, ref, "field"))
+    cpu_s = time.perf_counter() - t0
+    share = {key: float(out_end[key].float().mean())
+             for key in ("lane_change", "stopped", "hazard", "junction")}
+
+    # the OpenDrive leg: one parsed network, a fleet of egos on road 1
+    roads, junctions = parse_opendrive(XODR)
+    hb = sizes["hd_egos"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+
+    def u(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    lane_y = torch.where(torch.rand((hb,), generator=g, device=dev) < 0.5,
+                         -1.75, -5.25)
+    ex = u((hb,), 5.0, 95.0)
+    ego = EgoPose(ex, lane_y + u((hb,), -0.4, 0.4), u((hb,), 4.0, 10.0),
+                  u((hb,), -0.3, 0.3), u((hb,), -0.05, 0.05))
+    oy = torch.where(torch.rand((hb, k), generator=g, device=dev) < 0.5,
+                     -1.75, -5.25)
+    objs = TrackedObjects(ex[:, None] + u((hb, k), -30.0, 30.0), oy,
+                          u((hb, k), 0.0, 12.0), u((hb, k), -1.0, 1.0),
+                          u((hb, k), -0.4, 0.4),
+                          torch.rand((hb, k), generator=g, device=dev) < 0.9)
+    hd = []
+    for where, n in ((dev, hb), (cpu, nc)):
+        smap = LocalHdMap(XODR, route=["1", "2"], device=where).update(
+            20.0, -1.75)
+        if smap is None:
+            fail("field hdmap: no map published on road 1")
+        hd.append(update_map_state(
+            smap, EgoPose(*(f[:n].to(where) for f in ego)),
+            TrackedObjects(*(f[:n].to(where) for f in objs))))
+    (mm_d, model_d, beh_d), (mm_c, model_c, beh_c) = hd
+    hd_got = dict(model=model_d[:nc], lane_rounded=torch.round(
+        mm_d.ego_lane_index[:nc]), behaviors=beh_d[:nc],
+        front_exists=mm_d.front.exists[:nc],
+        ego_lane_index=mm_d.ego_lane_index[:nc], front_s=mm_d.front.s[:nc],
+        rear_s=mm_d.rear.s[:nc])
+    hd_ref = dict(model=model_c, lane_rounded=torch.round(mm_c.ego_lane_index),
+                  behaviors=beh_c, front_exists=mm_c.front.exists,
+                  ego_lane_index=mm_c.ego_lane_index, front_s=mm_c.front.s,
+                  rear_s=mm_c.rear.s)
+    hd_worst = _field_compare(hd_got, hd_ref, "field hdmap")
+    emit("field", egos=b, objects=k, ticks=t, window=win, seconds=run_s,
+         ticks_per_s=t / run_s, ego_ticks_per_s=b * t / run_s,
+         check_egos=nc, checked_ticks=len(kept), cpu_check_seconds=cpu_s,
+         integer_outputs_equal=True, max_real_abs_diff=worst,
+         shares_last_tick=share,
+         safeguard_stop_share=float(out_end["stopped"].float().mean()),
+         mean_speed_last_tick=float(wd_end.v.mean()),
+         hdmap=dict(roads=len(roads), junctions=len(junctions), egos=hb,
+                    junction_model_share=float((model_d == 0).float().mean()),
+                    front_exists_share=float(mm_d.front.exists.float().mean()),
+                    integer_outputs_equal=True, max_real_abs_diff=hd_worst),
+         seconds_total=time.perf_counter() - t_phase, gpu=gpu)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        only = set(argv[1].split(",")) if len(argv) == 2 \
+            and argv[0] == "--only" else None
+        if not only or not only <= {"lane", "field"}:
+            print("usage: chip_smoke.py [--only lane,field]", file=sys.stderr)
+            return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -1557,6 +2130,12 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
              for k, log in reports.items()}
     emit("build", seconds=round(build_s, 3), ptxas=ptxas)
+    if only:
+        if "lane" in only:
+            lane_phase(store_kernels, _cuda, gpu, dev)
+        if "field" in only:
+            field_phase(gpu, dev)
+        return 0
 
     env_cfg = EnvConfig()
     scfg = driving_store_config()
@@ -2056,6 +2635,13 @@ def main() -> int:
     # --- the readable batch-first drivers against the lane-major ones
     note_err("peraction_moments", readable_phase(sk, _cuda, hw, gpu))
 
+    # --- the lane-level field stack: the multilane world and its RLS gate
+    # (sorted_moments at D = 21), then cognition -> decision -> trajectory
+    # -> safeguard on a loop map and an OpenDrive map
+    lane = lane_phase(sk, _cuda, gpu, dev)
+    note_err("sorted_moments", lane["max_abs_err"])
+    field_phase(gpu, dev)
+
     emit("done", seconds=time.perf_counter() - t_start,
          gated_on_trainer_store_gate_share=ts_gate)
     print(json.dumps({"kernels": [
@@ -2074,7 +2660,14 @@ def main() -> int:
          "max_abs_err": max_err["sorted_moments"],
          "ms": so_summ["kernel_ms_mean"], "plain_ms": so_plain_ms,
          "bound_ms": so_summ["bound_ms_mean"],
-         "bound_by": so_summ["bound_by"], "library_ms": None},
+         "bound_by": so_summ["bound_by"], "library_ms": None,
+         # the lane gate's flat D = 21 launch, its own path
+         "lane_gate_launches": lane["launches"], "lane_gate_ms": lane["ms"],
+         "lane_gate_max_abs_err": lane["max_abs_err"],
+         "lane_gate_plain_ms": lane["plain_ms"],
+         "lane_gate_plain_queries": lane["plain_queries"],
+         "lane_gate_bound_ms": lane["bound_ms"],
+         "lane_gate_bound_by": lane["bound_by"]},
         {"name": "box_moments", "route": "cuda",
          "source": "dcarl_tpu_torch/csrc/box_moments.cu",
          "replaces": "dcarl_tpu/ops/pallas_store.py:32",

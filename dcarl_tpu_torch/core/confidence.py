@@ -12,8 +12,9 @@ estimators) and :73-102 (the stream loop).
 two-pass mean and std each step, as the reference's ``np.mean`` /
 ``np.std`` over Python lists do; run it in float64 for golden fidelity.
 :func:`golden_update` is one step of the stream loop; :func:`golden_run`
-(the JAX package's ``lax.scan`` of it) runs the stream in waves of
-distinct states, each wave a few batched launches.
+(the JAX package's ``lax.scan`` of it) runs the whole stream in a few
+batched launches: every row's bound at once, then each row's decision
+by a gather.
 
 ``RunningTable`` keeps (count, sum, sum of squares) per cell, the O(1)
 form of the batched paths.
@@ -213,14 +214,17 @@ def golden_run(data, true_action_values, action_num: Optional[int] = None,
     returns the final table and the per-step outputs stacked to [N].
 
     The result is that of :func:`golden_update` applied row by row (the
-    JAX package's ``lax.scan``), computed in waves: a row changes only
-    its own state's cells, and its decision reads only its own state's
-    row, so wave k takes the k-th visit of every state at once (about
-    N / 8 waves for the generated stream, N for a one-state stream).
-    The stream's indices are read to the host once, so the buckets'
-    fill counts and the visit counters are known before the loop, which
-    never waits on the device.  Activation steps and the overall value
-    follow after it from the per-row decisions."""
+    JAX package's ``lax.scan``), computed for all rows at once.  A row
+    writes only its own cell, whose bound reads only the prefix of the
+    cell's bucket that the rows before it filled: every sample goes into
+    its slot first, and each row's masked two-pass moments are one
+    ``[rows, CAP]`` computation.  A row's decision reads its state's
+    table row, whose cells hold the bound of each cell's latest update
+    up to that row: a running maximum over the rows sorted by state
+    finds it, and the decision is a gather.  The stream's indices are
+    read to the host once, so the buckets' fill counts and the visit
+    counters are known before any work on the device.  Activation steps
+    and the overall value follow from the per-row decisions."""
     device = resolve_device(device)
     data = torch.as_tensor(data).to(device, torch.float64)
     tav = torch.as_tensor(true_action_values).to(device, torch.float64)
@@ -230,6 +234,7 @@ def golden_run(data, true_action_values, action_num: Optional[int] = None,
     if capacity is None:
         raise ValueError("capacity must be provided (max per-cell bucket size)")
     table = golden_init(state_num, action_num, capacity, cfg, device=device)
+    prior = table.tsrl[0].clone()
     n_rows = data.shape[0]
     idx = data[:, [0, 2]].to(torch.int64).cpu().numpy()
     st, ac = idx[:, 0], idx[:, 1]
@@ -238,42 +243,55 @@ def golden_run(data, true_action_values, action_num: Optional[int] = None,
     np.add.at(table.counts, (st, ac), 1)
     table.seen[:] = np.bincount(st, minlength=state_num)
 
-    # the rows wave by wave, uploaded once
-    order = np.lexsort((np.arange(n_rows), visit))
-    edges = np.searchsorted(visit[order], np.arange(visit.max() + 2))
-
     def up(a, dt=torch.int64):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device, dt)
 
-    w_row, w_s, w_a, w_c = (up(x[order]) for x in (np.arange(n_rows), st, ac,
-                                                    slot))
-    w_n = up(slot[order] + 1, torch.float64)
-    w_upd = up(slot[order] + 1 > cfg.n_thres, torch.bool)
-    w_rule = w_a == cfg.rule_action
-    w_v = data[:, 3][w_row]
+    s_t, a_t, c_t = up(st), up(ac), up(slot)
+    n_t = up(slot + 1, torch.float64)
+    table.values[s_t, a_t, c_t] = data[:, 3]
+
+    # each row's bound of its own cell, in blocks of about 2^22 entries
+    bound = torch.empty(n_rows, dtype=torch.float64, device=device)
     iota = torch.arange(capacity, device=device)
-    step_value = torch.empty(n_rows, dtype=torch.float64, device=device)
-    tsrl_action = torch.empty(n_rows, dtype=torch.int64, device=device)
-    for k in range(len(edges) - 1):
-        lo, hi = int(edges[k]), int(edges[k + 1])
-        s, a, n = w_s[lo:hi], w_a[lo:hi], w_n[lo:hi]
-        table.values[s, a, w_c[lo:hi]] = w_v[lo:hi]
+    block = max(1, (1 << 22) // capacity)
+    for lo in range(0, n_rows, block):
+        s, a, n = s_t[lo:lo + block], a_t[lo:lo + block], n_t[lo:lo + block]
         bucket = table.values[s, a]                          # [W, CAP]
         mask = iota < n[:, None]
         dsum = torch.where(mask, bucket, 0.0).sum(1)
         mean = dsum / n
         sigma = torch.sqrt(torch.where(mask, (bucket - mean[:, None]) ** 2,
                                        0.0).sum(1) / n)
-        bound = tsrl_bound(mean, dsum, sigma, n, w_rule[lo:hi], cfg)
-        table.tsrl[s, a] = torch.where(w_upd[lo:hi], bound, table.tsrl[s, a])
-        row = table.tsrl[s]
-        step_value[w_row[lo:hi]] = row.amax(1)
-        tsrl_action[w_row[lo:hi]] = torch.argmax(row, 1)   # first of ties
+        bound[lo:lo + block] = tsrl_bound(mean, dsum, sigma, n,
+                                          a == cfg.rule_action, cfg)
+
+    # rows sorted by state: position p of the sorted stream; hit[p, a] = p
+    # where the row refreshes its cell (s, a), and the running maximum is
+    # the latest refresh of each cell at or before p (within the state's
+    # segment, else the cell still holds its prior)
+    order = np.argsort(st, kind="stable")
+    seg_start = np.searchsorted(st[order], st[order])
+    refresh = up((slot + 1 > cfg.n_thres)[order], torch.bool)
+    pos = torch.arange(n_rows, device=device)
+    hit = torch.where((a_t[up(order)][:, None]
+                       == torch.arange(action_num, device=device))
+                      & refresh[:, None], pos[:, None], -1)
+    last = hit.cummax(0).values                              # [N, A]
+    held = last >= up(seg_start)[:, None]
+    rows_sorted = torch.where(
+        held, bound[up(order)][last.clamp(min=0)], prior)    # [N, A]
+    rows = torch.empty_like(rows_sorted).index_copy_(0, up(order),
+                                                     rows_sorted)
+    step_value = rows.amax(1)
+    tsrl_action = torch.argmax(rows, 1)                     # first of ties
+    seg_last = np.r_[np.flatnonzero(np.diff(st[order])), n_rows - 1]
+    table.tsrl[up(st[order][seg_last])] = rows_sorted[up(seg_last)]
 
     # activation: a state's first visit whose decision leaves the rule
     # action; act_rows[k, s] is the row of state s's k-th visit (n_rows
     # past its last)
-    act_rows = np.full((len(edges) - 1, state_num), n_rows, np.int64)
+    n_visits = int(visit.max()) + 1
+    act_rows = np.full((n_visits, state_num), n_rows, np.int64)
     act_rows[visit, st] = np.arange(n_rows)
     act_rows = up(act_rows)
     left_rule = torch.cat([tsrl_action != cfg.rule_action,
@@ -287,17 +305,16 @@ def golden_run(data, true_action_values, action_num: Optional[int] = None,
 
     # the Sim-2 overall value after each row: the active states' current
     # maxima, each from the state's latest visit
-    rows = torch.arange(n_rows, device=device)
-    st_t = up(st)
-    latest = torch.where(st_t[:, None] == torch.arange(state_num,
-                                                       device=device),
-                         rows[:, None], 0).cummax(0).values   # [N, S]
-    active = act_row[None, :] <= rows[:, None]
+    rows_i = torch.arange(n_rows, device=device)
+    latest = torch.where(s_t[:, None] == torch.arange(state_num,
+                                                      device=device),
+                         rows_i[:, None], 0).cummax(0).values   # [N, S]
+    active = act_row[None, :] <= rows_i[:, None]
     overall = torch.where(active, step_value[latest]
                           - table.activation_value * 0.9, 0.0).sum(1)
 
-    out = StepOutput(st_t.to(torch.int32), step_value,
-                     tsrl_action.to(torch.int32), tav[st_t, tsrl_action],
+    out = StepOutput(s_t.to(torch.int32), step_value,
+                     tsrl_action.to(torch.int32), tav[s_t, tsrl_action],
                      overall)
     return table, out
 

@@ -3,7 +3,9 @@
 The drivers' state is the env carry, the confidence store and the
 reference-path tables; the trainers add trajectory buffers, act-hold
 segments, a trust set, a replay buffer and the learner (a flax
-Q-network and its optax Adam state).
+Q-network and its optax Adam state).  The lane-level field stack adds
+the multilane env's state (its reset draws included), the multilane
+world model and the static local map.
 These helpers take that state as numpy arrays (``np.asarray`` of each
 JAX array, or nested mappings of them; this module never imports JAX)
 and return the port's tensors on a given device, or load them into the
@@ -18,14 +20,18 @@ import numpy as np
 import torch
 from torch import nn
 
+from dcarl_tpu_torch.cognition.locator import StaticLocalMap
 from dcarl_tpu_torch.core.store import ConfidenceStore
 from dcarl_tpu_torch.env import driving_env as de
+from dcarl_tpu_torch.env.multilane_env import MultiLaneEnvState
 from dcarl_tpu_torch.models.networks import AttentionQNet
 from dcarl_tpu_torch.models.replay import Replay
 from dcarl_tpu_torch.planning.fast_rollout import FastEnvState, RefTables
+from dcarl_tpu_torch.planning.multilane import LaneVehicle, MultiLaneState
 
 _INT_FIELDS = ("stuck_steps", "step_count")
-_BOOL_FIELDS = ("done", "collided", "passed", "stuck")
+_BOOL_FIELDS = ("done", "collided", "passed", "stuck", "left_road",
+                "exists", "traffic_light_stop", "stop_thru")
 
 
 def _fields(src: Any) -> Mapping[str, Any]:
@@ -65,6 +71,40 @@ def _state_fields(f, names, device, dtype) -> Iterator[torch.Tensor]:
         else:
             t = torch.as_tensor(np.array(a)).to(dtype)
         yield t.to(device)
+
+
+def multilane_env_state_from_numpy(src: Any, device, dtype=torch.float32
+                                   ) -> MultiLaneEnvState:
+    """The JAX package's vmapped ``multilane_env.MultiLaneEnvState`` (every
+    field with the env batch leading) as the port's on ``device``; a
+    vmapped ``reset(keys)`` carried this way is JAX's reset draws, which
+    ``multilane_env.step_autoreset`` takes as ``fresh``."""
+    return MultiLaneEnvState(*_state_fields(
+        _fields(src), MultiLaneEnvState._fields, device, dtype))
+
+
+def multilane_state_from_numpy(src: Any, device, dtype=torch.float32
+                               ) -> MultiLaneState:
+    """A ``planning.multilane.MultiLaneState`` (the mmap, front and rear
+    ``LaneVehicle`` included, any leading batch dims) as the port's."""
+    f = _fields(src)
+    lanes = {side: LaneVehicle(*_state_fields(
+        _fields(f[side]), LaneVehicle._fields, device, dtype))
+        for side in ("front", "rear")}
+    rest = [n for n in MultiLaneState._fields if n not in lanes]
+    return MultiLaneState(**lanes, **dict(zip(
+        rest, _state_fields(f, rest, device, dtype))))
+
+
+def static_local_map_from_numpy(src: Any, device, dtype=torch.float32
+                                ) -> StaticLocalMap:
+    """A ``cognition.locator.StaticLocalMap`` as the port's (the target
+    lane index as i64)."""
+    f = _fields(src)
+    lanes, tangents, speed_limit, stop_thru = _state_fields(
+        f, ("lanes", "tangents", "speed_limit", "stop_thru"), device, dtype)
+    return StaticLocalMap(lanes, tangents, speed_limit, stop_thru,
+                          _to(f["target_lane_index"], device, torch.int64))
 
 
 def store_from_numpy(keys, values, valid, device

@@ -4,7 +4,8 @@ The reference's branchy "8-case" signed point-to-polyline distance
 (tools.py:141-222) is a chain of ``torch.where`` selects, so a batch of
 points ``[..., 2]`` projects onto one ``[N, 2]`` line at once: where the
 JAX function is ``vmap``-ped over points, the port takes the points'
-leading dims.  Where the reference takes ``jnp.linalg.norm`` of a 2-D
+leading dims (and where it is ``vmap``-ped over lines too,
+:func:`project_points_to_lines` takes [..., N, 2] lines).  Where the reference takes ``jnp.linalg.norm`` of a 2-D
 vector, the port writes :func:`norm2` out as ``sqrt(dx*dx + dy*dy)``:
 the nearest vertex is a first-minimum ``argmin`` over those distances,
 and the lane-major drivers (``planning/fast_rollout.py``) compute the
@@ -50,10 +51,11 @@ def polyline_length(line: torch.Tensor) -> torch.Tensor:
 
 
 def arclengths(line: torch.Tensor) -> torch.Tensor:
-    """[N] cumulative arc length of a [N, 2] line, 0 at the first vertex."""
+    """[..., N] cumulative arc length of [..., N, 2] lines, 0 at the first
+    vertex."""
     seg = _seg_lengths(line)
-    return torch.cat([torch.zeros((1,), dtype=line.dtype, device=line.device),
-                      _cumsum_blocked(seg)])
+    return torch.cat([torch.zeros_like(seg[..., :1]), _cumsum_blocked(seg)],
+                     dim=-1)
 
 
 def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
@@ -143,6 +145,14 @@ class PolylineProjection(NamedTuple):
     dist_end: torch.Tensor      # arc length from the foot to line end
 
 
+def gather_rows(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``t[..., i, :]`` of [..., N, C] rows for an index of the (broadcast)
+    leading shape: [..., C]."""
+    t = t.expand(*i.shape, *t.shape[-2:])
+    idx = i[..., None, None].expand(*i.shape, 1, t.shape[-1])
+    return torch.gather(t, -2, idx)[..., 0, :]
+
+
 def project_point_to_polyline(p: torch.Tensor, line: torch.Tensor
                               ) -> PolylineProjection:
     """Signed distance and arc-length projection of points ``p`` [..., 2]
@@ -150,26 +160,55 @@ def project_point_to_polyline(p: torch.Tensor, line: torch.Tensor
     ``dist_from_point_to_polyline2d`` (tools.py:141-222) as nested
     selects.  The nearest vertex is the first minimum, as ``jnp.argmin``
     takes it."""
-    n = line.shape[0]
-    dx = line[:, 0] - p[..., 0, None]                  # [..., N]
-    dy = line[:, 1] - p[..., 1, None]
+    cum = arclengths(line)
+    return _project(p, line[:, 0], line[:, 1], lambda i: line[i],
+                    lambda i: cum[i], cum[-1], line.shape[0])
+
+
+def project_points_to_lines(p: torch.Tensor, lines: torch.Tensor
+                            ) -> PolylineProjection:
+    """:func:`project_point_to_polyline` with a line of its own for each
+    point: points ``p`` [..., 2] onto lines [..., N, 2], the leading dims
+    broadcast (the JAX package ``vmap``-s the one-line form over lines).
+    For one line it gives the one-line form's bits: the same operations
+    on the same values."""
+    n = lines.shape[-2]
+    batch = torch.broadcast_shapes(p.shape[:-1], lines.shape[:-2])
+    p = p.expand(*batch, 2)
+    lines_b = lines.expand(*batch, n, 2)
+    cum = arclengths(lines).expand(*batch, n)
+
+    def cum_at(i):
+        return torch.gather(cum, -1, i[..., None])[..., 0]
+
+    return _project(p, lines_b[..., 0], lines_b[..., 1],
+                    lambda i: gather_rows(lines_b, i), cum_at, cum[..., -1], n)
+
+
+def _project(p, line_x, line_y, take, cum_at, total, n: int
+             ) -> PolylineProjection:
+    """Body of both projections: ``line_x``/``line_y`` [..., N] the
+    vertices, ``take(i)`` the vertices at index ``i`` ([..., 2]),
+    ``cum_at(i)`` the arc lengths there and ``total`` the line length."""
+    dx = line_x - p[..., 0, None]                      # [..., N]
+    dy = line_y - p[..., 1, None]
     dist_line = norm2(dx, dy)
     ci = torch.argmin(dist_line, dim=-1)
 
     seg_prev = torch.clamp(ci - 1, 0, n - 2)   # segment [ci-1, ci]
     seg_next = torch.clamp(ci, 0, n - 2)       # segment [ci, ci+1]
-    dl_p, d1_p, d2_p = dist_point_to_segments(p, line[seg_prev],
-                                              line[seg_prev + 1])
-    dl_n, d1_n, d2_n = dist_point_to_segments(p, line[seg_next],
-                                              line[seg_next + 1])
+    dl_p, d1_p, d2_p = dist_point_to_segments(p, take(seg_prev),
+                                              take(seg_prev + 1))
+    dl_n, d1_n, d2_n = dist_point_to_segments(p, take(seg_next),
+                                              take(seg_next + 1))
     at_start = ci == 0
     at_end = ci == n - 1
 
     # interior vertex (case 5): the sign comes from the turn direction
     ci_m1 = torch.clamp(ci - 1, 0, n - 1)
     ci_p1 = torch.clamp(ci + 1, 0, n - 1)
-    turn_dl, _, _ = dist_point_to_segments(line[ci_p1], line[ci_m1], line[ci])
-    vertex_sign_interior = torch.where(turn_dl > 0, -1.0, 1.0).to(line.dtype)
+    turn_dl, _, _ = dist_point_to_segments(take(ci_p1), take(ci_m1), take(ci))
+    vertex_sign_interior = torch.where(turn_dl > 0, -1.0, 1.0).to(line_x.dtype)
 
     d_vertex = torch.gather(dist_line, -1, ci[..., None])[..., 0]
     # start / end vertex cases keep the sign of the adjacent segment's dl
@@ -201,14 +240,12 @@ def project_point_to_polyline(p: torch.Tensor, line: torch.Tensor
     ctype = torch.where(at_start, type_s, torch.where(at_end, type_e, type_i))
 
     # arc-length bookkeeping (tools.py:205-220)
-    cum = arclengths(line)
-    total = cum[-1]
-    ds_next = d1_n + cum[seg_next]
-    de_next = d2_n + (total - cum[seg_next + 1])
-    ds_prev = d1_p + cum[seg_prev]
-    de_prev = d2_p + (total - cum[seg_prev + 1])
-    ds_vert = cum[ci]
-    de_vert = total - cum[ci]
+    ds_next = d1_n + cum_at(seg_next)
+    de_next = d2_n + (total - cum_at(seg_next + 1))
+    ds_prev = d1_p + cum_at(seg_prev)
+    de_prev = d2_p + (total - cum_at(seg_prev + 1))
+    ds_vert = cum_at(ci)
+    de_vert = total - cum_at(ci)
     dist_start = torch.where(ctype == 1, ds_next,
                              torch.where(ctype == -1, ds_prev, ds_vert))
     dist_end = torch.where(ctype == 1, de_next,
@@ -237,18 +274,38 @@ def cartesian_to_frenet(x, y, vx, vy, yaw, line: torch.Tensor,
                         ) -> FrenetState:
     """Cartesian -> Frenet (tools.py:224-257, kinematics.pyx:115-178) for
     points of any leading shape: project onto the line, take the tangent
-    of the hosting segment, rotate the velocity into the (s, d) frame."""
+    of the hosting segment, rotate the velocity into the (s, d) frame.
+    ``line`` is one [N, 2] line, or [..., N, 2] lines, one for each point
+    (``tangents`` [..., N] with them), as :func:`project_points_to_lines`
+    takes them."""
     x, y = torch.broadcast_tensors(_as(x, line), _as(y, line))
-    proj = project_point_to_polyline(torch.stack([x, y], dim=-1), line)
-    n = line.shape[0]
+    pts = torch.stack([x, y], dim=-1)
+    n = line.shape[-2]
+    if line.ndim == 2:
+        proj = project_point_to_polyline(pts, line)
+
+        def take(i):
+            return line[i]
+
+        def tangent(i):
+            return tangents[i]
+    else:
+        proj = project_points_to_lines(pts, line)
+
+        def take(i):
+            return gather_rows(line, i)
+
+        def tangent(i):
+            return gather_rows(tangents[..., None], i)[..., 0]
     ci = proj.closest_idx
     nxt = torch.clamp(ci + 1, 0, n - 1)
     prv = torch.clamp(ci - 1, 0, n - 1)
-    psi_next = torch.atan2(line[nxt, 1] - line[ci, 1],
-                           line[nxt, 0] - line[ci, 0])
-    psi_prev = torch.atan2(line[ci, 1] - line[prv, 1],
-                           line[ci, 0] - line[prv, 0])
-    psi_vert = psi_next if tangents is None else tangents[ci]
+    p_ci, p_nxt, p_prv = take(ci), take(nxt), take(prv)
+    psi_next = torch.atan2(p_nxt[..., 1] - p_ci[..., 1],
+                           p_nxt[..., 0] - p_ci[..., 0])
+    psi_prev = torch.atan2(p_ci[..., 1] - p_prv[..., 1],
+                           p_ci[..., 0] - p_prv[..., 0])
+    psi_vert = psi_next if tangents is None else tangent(ci)
     psi_line = torch.where(proj.closest_type == 1, psi_next,
                            torch.where(proj.closest_type == -1, psi_prev,
                                        psi_vert))

@@ -74,21 +74,27 @@ class RefPath(NamedTuple):
 
 
 def _cumsum_blocked(v: torch.Tensor, block: int = 16) -> torch.Tensor:
-    """Prefix sum in the association order of the JAX reference on the
-    CPU, where XLA lowers ``cumsum`` as a two-level scan: a sequential
-    prefix inside each 16-element block, plus the running total of the
-    earlier blocks.  The chordal knots, and every spline coefficient
-    fitted on them, then round exactly as the reference's do."""
-    # 0-d tensor adds round in v's dtype at every step (torch.cumsum on
+    """Prefix sum over the last axis in the association order of the JAX
+    reference on the CPU, where XLA lowers ``cumsum`` as a two-level
+    scan: a sequential prefix inside each 16-element block, plus the
+    running total of the earlier blocks.  The chordal knots, and every
+    spline coefficient fitted on them, then round exactly as the
+    reference's do.  Leading axes are independent sums."""
+    # elementwise adds round in v's dtype at every step (torch.cumsum on
     # the CPU would accumulate a float32 input in double)
-    out, carry = [], torch.zeros((), dtype=v.dtype, device=v.device)
-    for start in range(0, v.shape[0], block):
-        acc = torch.zeros((), dtype=v.dtype, device=v.device)
-        for x in v[start:start + block]:
-            acc = acc + x
-            out.append(carry + acc)
-        carry = carry + acc
-    return torch.stack(out)
+    n = v.shape[-1]
+    nb = -(-n // block)
+    vb = torch.nn.functional.pad(v, (0, nb * block - n)).reshape(
+        *v.shape[:-1], nb, block)
+    acc = [torch.zeros_like(vb[..., 0]) + vb[..., 0]]
+    for j in range(1, block):
+        acc.append(acc[-1] + vb[..., j])
+    acc = torch.stack(acc, -1)                          # [..., nb, block]
+    carry = [torch.zeros_like(acc[..., 0, 0])]
+    for b in range(nb - 1):
+        carry.append(carry[-1] + acc[..., b, -1])
+    carry = torch.stack(carry, -1)                      # [..., nb]
+    return (carry[..., None] + acc).reshape(*v.shape[:-1], nb * block)[..., :n]
 
 
 def refpath_from_xy(x: torch.Tensor, y: torch.Tensor) -> RefPath:

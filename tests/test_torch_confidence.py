@@ -10,8 +10,9 @@ float64 input, XLA's is; ``sqrt(1.4978661367769954 / 10.0)`` is one
 such input).  The golden stream loop (waves of distinct states in the
 port, a ``lax.scan`` in JAX) is compared on generated data: decisions
 and activation steps equal, values within rtol 1e-10 (the two-pass
-moments sum a bucket in another order); the waves are also held to the
-port's own row-by-row ``golden_update``.  The generator's random stream is
+moments sum a bucket in another order), on a 20-state stream and on a
+one-state stream; the batched run is also held to the port's own
+row-by-row ``golden_update``.  The generator's random stream is
 torch's, so it is compared with JAX's by distribution, as
 ``tests/test_confidence.py:187`` checks JAX's against the reference's.
 The bundled-dataset loader is run on a small ``.npy`` tree written under
@@ -115,8 +116,8 @@ def test_golden_run_matches_jax(golden_pair):
 
 
 def test_golden_run_waves_match_the_row_loop(golden_pair):
-    """golden_run's waves of distinct states against golden_update applied
-    row by row (the JAX scan's body), on the stream's first 1,500 rows."""
+    """golden_run's batched rows against golden_update applied row by row
+    (the JAX scan's body), on the stream's first 1,500 rows."""
     data = golden_pair[0][:1500]
     av = torch.as_tensor(_stream(0, 10, 20, 11)[1])
     cap = C.required_capacity(data, 20, 11)
@@ -141,6 +142,31 @@ def test_golden_run_waves_match_the_row_loop(golden_pair):
                      (table_w.tsrl, table.tsrl), (table_w.values, table.values)):
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-12, atol=0)
     assert (table.activation_step.numpy() > 0).any()
+
+
+def test_golden_run_one_state_stream_matches_jax():
+    """A one-state stream (Simulation_1's shape): every row visits the same
+    state, so its rows share one table row; decisions equal to JAX's."""
+    ds = jsampling.generate(jax.random.PRNGKey(3), state_num=1,
+                            action_num=11, size=1500)
+    data = np.asarray(ds.data, np.float64)
+    av = np.asarray(ds.action_values, np.float64)
+    cap = C.required_capacity(data, 1, 11)
+    table_j, out_j = jax.device_get(JC.golden_run(
+        jnp.asarray(data), jnp.asarray(av), action_num=11, capacity=cap,
+        cfg=JCFG))
+    table_t, out_t = C.golden_run(data, av, action_num=11, capacity=cap,
+                                  cfg=CFG, device="cpu")
+    np.testing.assert_array_equal(out_t.tsrl_action.numpy(), out_j.tsrl_action)
+    np.testing.assert_array_equal(table_t.activation_step.numpy(),
+                                  table_j.activation_step)
+    np.testing.assert_array_equal(table_t.counts, table_j.counts)
+    for got, ref in ((out_t.step_value, out_j.step_value),
+                     (out_t.overall_value, out_j.overall_value),
+                     (table_t.tsrl, table_j.tsrl)):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-10, atol=0)
+    assert (out_t.tsrl_action.numpy() != 0).any()
+    assert int(table_t.activation_step[0]) > 0
 
 
 def test_golden_run_refuses_a_quiet_cpu_run(monkeypatch):

@@ -164,3 +164,64 @@ def test_spline_evaluators_match_jax(dtype):
     for got, ref in pairs:
         assert got.shape == s.shape
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **tol)
+
+
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+def test_project_points_to_lines_is_the_one_line_form(dt):
+    """Points onto a line of their own ([..., N, 2] lines, the leading dims
+    broadcast): each line's points get the one-line form's bits, and JAX's
+    projection vmapped over lines agrees (f64: integers equal, reals
+    within 1e-12)."""
+    rng = np.random.default_rng(4)
+    lines = np.stack([_walk(rng, 37) for _ in range(3)]).astype(dt)  # [3, N, 2]
+    pts = (rng.normal(0, 3, (3, 5, 2)) + lines.mean(1)[:, None]).astype(dt)
+    pts[:, 0] = lines[:, 0] - 1.5                      # before the starts
+    pts[:, 1] = lines[:, 7]                            # on a vertex
+    got = G.project_points_to_lines(_t(pts), _t(lines)[:, None])   # [3, 5]
+    for b in range(3):
+        one = G.project_point_to_polyline(_t(pts[b]), _t(lines[b]))
+        for name in G.PolylineProjection._fields:
+            assert torch.equal(getattr(got, name)[b], getattr(one, name)), name
+    ref = jax.vmap(JG.project_points_to_polyline)(jnp.asarray(pts),
+                                                 jnp.asarray(lines))
+    for name in ("closest_idx", "closest_type"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)), name)
+    if dt == np.float64:
+        for name in ("distance", "dist_start", "dist_end"):
+            np.testing.assert_allclose(getattr(got, name).numpy(),
+                                       np.asarray(getattr(ref, name)), **TOL)
+    # one shared line broadcast against a batch of points
+    shared = G.project_points_to_lines(_t(pts), _t(lines[0]))
+    one = G.project_point_to_polyline(_t(pts), _t(lines[0]))
+    for name in G.PolylineProjection._fields:
+        assert torch.equal(getattr(shared, name), getattr(one, name)), name
+
+
+def test_cartesian_to_frenet_per_point_lines():
+    """cartesian_to_frenet with [..., N, 2] lines (one for each point) is
+    the one-line form's bits, line by line."""
+    rng = np.random.default_rng(5)
+    lines = np.stack([_walk(rng, 30) for _ in range(4)])
+    tan = rng.normal(0, 1, (4, 30))
+    pts = rng.normal(0, 3, (4, 2)) + lines.mean(1)
+    v = rng.normal(0, 5, (3, 4))
+    got = G.cartesian_to_frenet(_t(pts[:, 0]), _t(pts[:, 1]), _t(v[0]),
+                                _t(v[1]), _t(v[2]), _t(lines), _t(tan))
+    for b in range(4):
+        one = G.cartesian_to_frenet(_t(pts[b, 0]), _t(pts[b, 1]), _t(v[0, b]),
+                                    _t(v[1, b]), _t(v[2, b]), _t(lines[b]),
+                                    _t(tan[b]))
+        for name in G.FrenetState._fields:
+            assert torch.equal(getattr(got, name)[b], getattr(one, name)), name
+
+
+def test_blocked_cumsum_batches_the_one_line_sum():
+    """The blocked prefix sum over the last axis of a batch is each row's
+    own 1-D sum, bit for bit."""
+    rng = np.random.default_rng(6)
+    v = _t(rng.normal(0, 1, (3, 4, 53)).astype(np.float32))
+    got = S._cumsum_blocked(v)
+    for a in range(3):
+        for b in range(4):
+            assert torch.equal(got[a, b], S._cumsum_blocked(v[a, b]))

@@ -67,6 +67,16 @@ def test_port_import_pulls_in_no_jax():
         "import dcarl_tpu_torch.parallel.sharded_store\n"
         "import dcarl_tpu_torch.parallel.normalize\n"
         "import dcarl_tpu_torch.parallel.launch\n"
+        "import dcarl_tpu_torch.planning.multilane\n"
+        "import dcarl_tpu_torch.planning.idm\n"
+        "import dcarl_tpu_torch.planning.lane_utility\n"
+        "import dcarl_tpu_torch.planning.decision\n"
+        "import dcarl_tpu_torch.planning.safeguard\n"
+        "import dcarl_tpu_torch.planning.local_trajectory\n"
+        "import dcarl_tpu_torch.env.multilane_env\n"
+        "import dcarl_tpu_torch.cognition\n"
+        "import dcarl_tpu_torch.navigation\n"
+        "import dcarl_tpu_torch.navigation.opendrive\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_rank_programs\n"
         "bad = [m for m in sys.modules\n"
