@@ -133,6 +133,26 @@ closed-loop CLIs (``examples/run_improvement.py``,
                 1e-4); an OpenDrive network parsed in the script,
                 LocalHdMap -> update_map_state for 1,024 egos, held to
                 the CPU the same way
+  algos         the algorithm family (algos/): each learner trains at
+                tests/test_algos.py's configuration, update count and
+                threshold (DDPG and TD3 from each of seeds 0-7, at least
+                one clearing it; A2C, PPO, PPO continuous, PPO1, TRPO,
+                ACKTR, ACER, GAIL, SAC and HER-DQN from seed 0), timed
+                (seconds an update, env-steps/s); three updates of each on
+                the card and on the CPU from one init on the same draws
+                (integers equal, floats within the CPU tests'
+                tolerances) and a 256-env rollout's sampled actions card
+                vs CPU; PPO at the published width, 4,096 envs x 32
+                steps; PPO over two gloo ranks on the card (bit-equal
+                across the ranks, on shared draws equal to one rank).
+                No store kernel on this path
+  vec           TorchVecEnv at 1,024 T-intersection envs x 50 steps
+                through VecCheckNan(VecMonitor(.)), bit-equal to the
+                direct step_fn from the same seed; the calibration tables
+                and feedforward commands on the card against the CPU; a
+                torch.profiler trace of one PPO update (CUDA kernel
+                events, the device's busy share); nan_guard over every
+                trained learner's state
 
 Each rate comes from a run without probes; a replay of the same run then
 times each launch and reports its plan (kept and window sub-slices per
@@ -148,6 +168,7 @@ without a CUDA device or without the package beside it.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only lane,field   # build, then those phases
+    python3 chip_smoke.py --only algos,vec    # this slice's phases
 """
 
 from __future__ import annotations
@@ -2077,14 +2098,502 @@ def field_phase(gpu: str, dev, sizes=FIELD_SIZES) -> None:
          seconds_total=time.perf_counter() - t_phase, gpu=gpu)
 
 
+# ---------------------------------------------------------------------------
+# The algorithm family (algos/) and the vec-env wrappers (parallel/vec_env,
+# control/calibration, utils/profiling, utils/nan_guard)
+
+# DDPG and TD3 clear tests/test_algos.py's threshold from some seeds and not
+# others, in the JAX package too (2 and 3 of seeds 0-7 on the CPU:
+# tools/algo_seed_rates.py);
+# the card runs these seeds, fixed before the first run, and each must
+# clear it from one of them at least
+OFF_POLICY_SEEDS = tuple(range(8))
+ALGO_CHECK_UPDATES = 3
+
+
+def _algo_cases(dev):
+    """name -> (make() -> (init, update[, act]), init args, updates, env
+    steps an update): tests/test_algos.py's configurations."""
+    from dcarl_tpu_torch.algos import (a2c, acer, acktr, common as C, ddpg,
+                                       gail, ppo, sac, td3, trpo)
+
+    env, box = C.identity_env(3), C.identity_env_box(1)
+    ids = np.random.default_rng(0).integers(0, 3, 512)
+    exp_obs = torch.as_tensor(np.eye(3, dtype=np.float32)[ids], device=dev)
+    exp_act = torch.as_tensor(ids, device=dev)
+    off = dict(batch_size=64, replay_capacity=4096)
+    return {
+        "a2c": (lambda: a2c.make_a2c(env, a2c.A2CConfig(n_steps=8)),
+                (32,), 300, 8 * 32),
+        "ppo": (lambda: ppo.make_ppo(env, ppo.PPOConfig(
+            n_steps=32, n_epochs=4, n_minibatches=4)), (32,), 40, 32 * 32),
+        "ppo_continuous": (lambda: ppo.make_ppo(box, ppo.PPOConfig(
+            n_steps=32, learning_rate=1e-3)), (32,), 150, 32 * 32),
+        "ppo1": (lambda: ppo.make_ppo(env, ppo.ppo1_config(60)._replace(
+            n_steps=16)), (16,), 60, 16 * 16),
+        "trpo": (lambda: trpo.make_trpo(env, trpo.TRPOConfig(
+            n_steps=64, max_kl=0.05)), (32,), 40, 64 * 32),
+        "acktr": (lambda: acktr.make_acktr(env, acktr.ACKTRConfig(n_steps=8)),
+                  (16,), 150, 8 * 16),
+        "acer": (lambda: acer.make_acer(env, acer.ACERConfig(
+            n_steps=8, buffer_segments=16, replay_start=2), batch=16),
+            (), 150, 8 * 16),
+        "gail": (lambda: gail.make_gail(env, exp_obs, exp_act, gail.GAILConfig(
+            trpo=trpo.TRPOConfig(n_steps=16, entcoeff=0.01))),
+            (32,), 150, 3 * 16 * 32),
+        "ddpg": (lambda: ddpg.make_ddpg(box, ddpg.DDPGConfig(
+            actor_lr=1e-3, critic_lr=1e-3, **off)), (32,), 800, 32),
+        "td3": (lambda: td3.make_td3(box, td3.TD3Config(
+            actor_lr=1e-3, critic_lr=1e-3, **off)), (32,), 800, 32),
+        "sac": (lambda: sac.make_sac(box, sac.SACConfig(lr=1e-3, **off)),
+                (32,), 800, 32),
+    }
+
+
+def _train_algo(name, case, gen):
+    """Train one learner on ``gen``'s device; (state, score, seconds)."""
+    from dcarl_tpu_torch.algos import nets
+
+    make, init_args, n, _ = case
+    fns = make()
+    init, upd = fns[0], fns[1]
+    state = init(gen, *init_args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rewards = []
+    key = "adversary_reward" if name == "gail" else "reward_mean"
+    for _ in range(n):
+        state, m = upd(state, gen)
+        rewards.append(m[key])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    r = torch.stack(rewards).cpu().numpy()
+    if name in ("ddpg", "td3", "sac"):
+        score = float(torch.mean(torch.abs(fns[2](state, state.obs)
+                                           - state.obs)))
+    elif name == "gail":
+        logits, _ = nets.apply(upd.trpo.net, state.trpo.params,
+                               torch.eye(3, device=gen.device))
+        score = torch.argmax(logits, -1).tolist()
+    else:
+        last = {"a2c": 20, "acktr": 20, "acer": 20, "ppo1": 10}.get(name, 5)
+        score = float(np.mean(r[-last:]))
+    return state, score, secs
+
+
+ALGO_PASS = {
+    "a2c": lambda s: s > 0.8, "ppo": lambda s: s > 0.8,
+    "ppo_continuous": lambda s: s > -0.15, "ppo1": lambda s: s > 0.8,
+    "trpo": lambda s: s > 0.7, "acktr": lambda s: s > 0.9,
+    "acer": lambda s: s > 0.9, "gail": lambda s: s == [0, 1, 2],
+    "ddpg": lambda s: s < 0.15, "td3": lambda s: s < 0.15,
+    "sac": lambda s: s < 0.2, "her_dqn": lambda s: s > 0.55,
+}
+
+
+def _her_learn(dev, gen):
+    """tests/test_algos.py::test_her_dqn_bitflip: 300 updates (16
+    episodes, 8 sampled batches each), then the greedy policy on 64
+    fresh boards; (state, solved share, seconds)."""
+    from dcarl_tpu_torch.algos import her
+
+    n_bits = 5
+    init, upd, q_fn, (reset_fn, step_fn, T) = her.make_her_dqn(
+        n_bits, her.HERDQNConfig(buffer_episodes=256))
+    state = init(gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(300):
+        state = upd(state, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st, obs = reset_fn(her.bitflip_draws((64,), n_bits, gen))
+    solved = torch.zeros((64,), dtype=torch.bool, device=dev)
+    for _ in range(T):
+        a = torch.argmax(q_fn(state, obs), dim=-1)
+        st, obs, rew, _ = step_fn(st, a, her.bitflip_draws((64,), n_bits, gen))
+        solved = solved | (rew == 0.0)
+    return state, float(solved.float().mean()), secs
+
+
+def _small_algos(dev):
+    """name -> (fns made for ``dev``, init args, draw extra args, loose):
+    the CPU tests' configurations (tests/test_torch_algos_*.py)."""
+    from dcarl_tpu_torch.algos import (a2c, acer, acktr, common as C, ddpg,
+                                       gail, her, ppo, sac, td3, trpo)
+
+    env, box, hid = C.identity_env(3), C.identity_env_box(2), (16, 16)
+    small_ppo = ppo.PPOConfig(n_steps=4, n_epochs=2, n_minibatches=2,
+                              learning_rate=1e-3)
+    off = dict(batch_size=16, replay_capacity=64, train_start=8)
+    ids = np.random.default_rng(0).integers(0, 3, 32)
+    return {
+        "a2c": (a2c.make_a2c(env, a2c.A2CConfig(n_steps=4), hid), (8,), (),
+                False),
+        "ppo": (ppo.make_ppo(env, small_ppo, hid), (8,), (), False),
+        "ppo_continuous": (ppo.make_ppo(box, small_ppo, hid), (8,), (), False),
+        "ppo1": (ppo.make_ppo(env, ppo.ppo1_config(4)._replace(n_steps=4),
+                              hid), (8,), (), False),
+        "trpo": (trpo.make_trpo(env, trpo.TRPOConfig(n_steps=8, max_kl=0.05),
+                                hid), (8,), (), True),
+        "acktr": (acktr.make_acktr(env, acktr.ACKTRConfig(n_steps=4), hid),
+                  (8,), (), True),
+        "acer": (acer.make_acer(env, acer.ACERConfig(
+            n_steps=4, buffer_segments=4, replay_start=2, replay_ratio=2),
+            batch=8), (), (), True),
+        "gail": (gail.make_gail(
+            env, torch.as_tensor(np.eye(3, dtype=np.float32)[ids],
+                                 device=dev),
+            torch.as_tensor(ids, device=dev), gail.GAILConfig(
+                trpo=trpo.TRPOConfig(n_steps=4, entcoeff=0.01), g_step=2,
+                d_batch=16, hidden_size_adversary=16), hid), (8,), (), True),
+        "ddpg": (ddpg.make_ddpg(box, ddpg.DDPGConfig(**off), hid), (8,), (),
+                 False),
+        "td3": (td3.make_td3(box, td3.TD3Config(**off), hid), (8,), (), False),
+        "sac": (sac.make_sac(box, sac.SACConfig(**off), hid), (8,), (), False),
+        "her_dqn": (her.make_her_dqn(4, her.HERDQNConfig(
+            batch_size=16, buffer_episodes=16, target_period=2), (32,)),
+            (), (8, 2), False),
+    }
+
+
+def _to(tree, dev):
+    from dcarl_tpu_torch.parallel.mesh import tree_map
+    return tree_map(lambda x: x.to(dev), tree)
+
+
+def _card_vs_cpu(dev) -> dict:
+    """Each learner ALGO_CHECK_UPDATES updates on the card and on the CPU
+    from the same init on the same draws (made on the CPU): integer and
+    bool state (env categories, step counters, replay and buffer
+    indices) and TRPO's accepted backtrack index equal, floats within
+    the CPU tests' tolerances (rtol 1e-5 / atol 1e-6; TRPO, ACKTR, ACER
+    and GAIL's TRPO rtol 1e-4 / atol 1e-5)."""
+    from dcarl_tpu_torch.algos.common import tree_leaves
+
+    cpu = torch.device("cpu")
+    cpu_fns, card_fns = _small_algos(cpu), _small_algos(dev)
+    out = {}
+    for name, (fns, init_args, draw_args, loose) in cpu_fns.items():
+        upd_c, upd_g = fns[1], card_fns[name][0][1]
+        gc = torch.Generator().manual_seed(SEED)
+        s_c = fns[0](gc, *init_args)
+        s_g = _to(s_c, dev)
+        worst, backtracks = 0.0, []
+        rtol, atol = (1e-4, 1e-5) if loose else (1e-5, 1e-6)
+        for _ in range(ALGO_CHECK_UPDATES):
+            d = upd_c.draw(s_c, gc, *draw_args)
+            out_c = upd_c.with_draws(s_c, d)
+            out_g = upd_g.with_draws(s_g, _to(d, dev))
+            if name == "her_dqn":
+                (s_c, m_c), (s_g, m_g) = (out_c, {}), (out_g, {})
+            else:
+                (s_c, m_c), (s_g, m_g) = out_c, out_g
+            if "backtrack" in m_c:
+                if int(m_c["backtrack"]) != int(m_g["backtrack"]):
+                    fail(f"algos: {name} card backtrack "
+                         f"{int(m_g['backtrack'])} != CPU "
+                         f"{int(m_c['backtrack'])}")
+                backtracks.append(int(m_g["backtrack"]))
+            for a, b in zip(tree_leaves(s_g), tree_leaves(s_c)):
+                a = a.cpu()
+                if not b.is_floating_point():
+                    if not torch.equal(a, b):
+                        fail(f"algos: {name} card integer state != CPU")
+                    continue
+                err = (a - b).abs()
+                if bool((err > atol + rtol * b.abs()).any()):
+                    fail(f"algos: {name} card vs CPU beyond rtol {rtol} / "
+                         f"atol {atol}: {float(err.max())}")
+                worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        out[name] = {"max_abs_err": worst, "rtol": rtol, "atol": atol,
+                     **({"backtracks": backtracks} if backtracks else {})}
+    return out
+
+
+def _rollout_actions_vs_cpu(dev) -> dict:
+    """A categorical and a Gaussian policy's 16-step rollouts of 256 envs
+    on the same draws: the card's sampled actions equal the CPU's."""
+    from dcarl_tpu_torch.algos import common as C
+    from dcarl_tpu_torch.algos import nets
+
+    out = {}
+    for kind in ("categorical", "gaussian"):
+        env = C.identity_env(3) if kind == "categorical" \
+            else C.identity_env_box(2)
+        net = nets.CategoricalActorCritic(3, 3) if kind == "categorical" \
+            else nets.GaussianActorCritic(2, 2)
+        g = torch.Generator().manual_seed(SEED)
+        params = nets.init_params(lambda gg: type(net)(
+            env.obs_dim, 3 if kind == "categorical" else 2, generator=gg), g)
+        st, obs = env.reset(env.draw((256,), g))
+        draws = C.rollout_draws(env, 16, 256, (3,) if kind == "categorical"
+                                else (2,), g, "gumbel" if kind ==
+                                "categorical" else "normal")
+
+        def run(p, st, obs, d):
+            def policy(o, x):
+                out = nets.apply(net, p, o)
+                if kind == "categorical":
+                    return C.categorical_sample(out[0], x)
+                return out[0] + torch.exp(out[1]) * x
+            return C.collect_rollout(env, policy, st, obs, d)[2]
+
+        tc = run(params, st, obs, draws)
+        tg = run(*_to((params, st, obs, draws), dev))
+        if kind == "categorical":
+            diff = int((tg.action.cpu() != tc.action).sum())
+            if diff:
+                fail(f"algos: {diff} sampled actions differ card vs CPU")
+            out[kind] = {"actions": tc.action.numel(), "differ": 0}
+        else:
+            err = float((tg.action.cpu() - tc.action).abs().max())
+            if err > 1e-5:
+                fail(f"algos: Gaussian actions card vs CPU differ by {err}")
+            out[kind] = {"actions": tc.action.numel(), "max_abs_err": err}
+    return out
+
+
+def _rank_ppo(mesh, p=None):
+    """Rank program: PPO on the identity env over the mesh (8 envs a
+    rank, n_steps 4, 2 x 2 minibatches) from one init: on the same draws
+    as a one-rank update, and on this rank's own draws."""
+    from dcarl_tpu_torch.algos import common as C
+    from dcarl_tpu_torch.algos import ppo as PPO
+
+    dev = mesh.device
+    env = C.identity_env(3)
+    cfg = PPO.PPOConfig(n_steps=4, n_epochs=2, n_minibatches=2)
+    init, upd_mesh = PPO.make_ppo(env, cfg, (16, 16), mesh=mesh)
+    _, upd_one = PPO.make_ppo(env, cfg, (16, 16))
+    state = init(torch.Generator(device=dev).manual_seed(0), 8)
+    draws = upd_one.draw(state, torch.Generator(device=dev).manual_seed(1))
+    same, _ = upd_mesh.with_draws(state, draws)
+    one, _ = upd_one.with_draws(state, draws)
+    own, _ = upd_mesh.with_draws(state, upd_one.draw(
+        state, torch.Generator(device=dev).manual_seed(10 + mesh.rank)))
+    sync(dev)
+    return {"same_equals_one_rank": all(torch.equal(same.params[k],
+                                                    one.params[k])
+                                        for k in one.params),
+            "same": {k: v.cpu() for k, v in same.params.items()},
+            "own": {k: v.cpu() for k, v in own.params.items()}}
+
+
+def algos_phase(gpu: str, dev) -> dict:
+    """The algorithm family on the card: learnability at
+    tests/test_algos.py's configurations and thresholds (DDPG and TD3
+    from each of OFF_POLICY_SEEDS), the card against the CPU, rates
+    (PPO also at the published width, 4,096 envs x 32 steps) and PPO over
+    two gloo ranks on the card.  Returns the trained states."""
+    from dcarl_tpu_torch.algos import common as C
+    from dcarl_tpu_torch.algos import ppo
+    from dcarl_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    learn, states = {}, {}
+    for name, case in _algo_cases(dev).items():
+        seeds = OFF_POLICY_SEEDS if name in ("ddpg", "td3") else (SEED,)
+        runs = []
+        for seed in seeds:
+            state, score, secs = _train_algo(
+                name, case, torch.Generator(device=dev).manual_seed(seed))
+            runs.append((seed, score, secs, ALGO_PASS[name](score)))
+            states.setdefault(name, state)
+            if ALGO_PASS[name](score):
+                states[name] = state
+        n_up, steps = case[2], case[3]
+        secs = float(np.mean([r[2] for r in runs]))
+        learn[name] = {
+            "scores": [r[1] for r in runs], "seeds": list(seeds),
+            "cleared": sum(r[3] for r in runs), "updates": n_up,
+            "s_per_update": secs / n_up,
+            "env_steps_per_s": steps * n_up / secs}
+        if not learn[name]["cleared"]:
+            fail(f"algos: {name} missed tests/test_algos.py's threshold "
+                 f"from every seed: {learn[name]['scores']}")
+    state, score, secs = _her_learn(dev, torch.Generator(device=dev)
+                                    .manual_seed(SEED))
+    states["her_dqn"] = state
+    learn["her_dqn"] = {"scores": [score], "seeds": [SEED],
+                        "cleared": int(ALGO_PASS["her_dqn"](score)),
+                        "updates": 300, "s_per_update": secs / 300,
+                        "env_steps_per_s": 16 * 5 * 300 / secs}
+    if not learn["her_dqn"]["cleared"]:
+        fail(f"algos: HER-DQN solved {score} <= 0.55")
+    learn_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    versus = _card_vs_cpu(dev)
+    actions = _rollout_actions_vs_cpu(dev)
+    versus_s = time.perf_counter() - t0
+
+    # PPO at the published width (64, 64), 4,096 envs x 32 steps
+    init, upd = ppo.make_ppo(C.identity_env(3), ppo.PPOConfig(n_steps=32))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    st = init(g, 4096)
+    st, _ = upd(st, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        st, m = upd(st, g)
+    torch.cuda.synchronize()
+    wide = (time.perf_counter() - t0) / 3
+    ppo_wide = {"envs": 4096, "n_steps": 32, "s_per_update": wide,
+                "env_steps_per_s": 4096 * 32 / wide,
+                "reward_mean": float(m["reward_mean"])}
+
+    # two gloo ranks on the one card
+    t0 = time.perf_counter()
+    ranks = run_ranks(_rank_ppo, 2, "gloo",
+                      "cuda:0" if torch.device(dev).type == "cuda" else "cpu",
+                      timeout_s=RANKS_TIMEOUT_S)
+    for r in ranks:
+        if not r["same_equals_one_rank"]:
+            fail("algos: PPO over two ranks on the same draws != one rank")
+    for k in ranks[0]["own"]:
+        if not (torch.equal(ranks[0]["own"][k], ranks[1]["own"][k])
+                and torch.equal(ranks[0]["same"][k], ranks[1]["same"][k])):
+            fail(f"algos: PPO parameter {k} differs across the two ranks")
+    two_ranks = {"bit_equal_across_ranks": True,
+                 "same_draws_equal_one_rank": True,
+                 "seconds": time.perf_counter() - t0}
+    emit("algos", learn=learn, learn_seconds=learn_s, card_vs_cpu=versus,
+         rollout_actions=actions, card_vs_cpu_seconds=versus_s,
+         ppo_published_width=ppo_wide, two_ranks=two_ranks,
+         seconds=time.perf_counter() - t_phase, gpu=gpu)
+    return states
+
+
+def vec_phase(gpu: str, dev, algo_states=None) -> None:
+    """TorchVecEnv over the T-intersection at 1,024 envs x 50 steps
+    through VecCheckNan(VecMonitor(.)), bit-equal to a direct step_fn run
+    from the same generator seed; the calibration tables on the card
+    against the CPU; a torch.profiler trace of one PPO update holding
+    CUDA kernel events; nan_guard over every trained learner's state."""
+    from dcarl_tpu_torch.algos import common as C
+    from dcarl_tpu_torch.algos import ppo
+    from dcarl_tpu_torch.config import EnvConfig
+    from dcarl_tpu_torch.control import calibration as CAL
+    from dcarl_tpu_torch.env.driving_env import make_vec_env
+    from dcarl_tpu_torch.env.scenario import t_intersection
+    from dcarl_tpu_torch.parallel import vec_env as V
+    from dcarl_tpu_torch.utils import nan_guard as NG
+    from dcarl_tpu_torch.utils import profiling as PR
+
+    t_phase = time.perf_counter()
+    b, steps = 1024, 50
+    reset_fn, step_fn = make_vec_env(t_intersection(), EnvConfig(), device=dev)
+    rng = np.random.default_rng(SEED)
+    acts = [np.clip([1.0, 0.0] + rng.normal(0.0, 0.3, (b, 2)), -1.0, 1.0)
+            .astype(np.float32) for _ in range(steps)]
+    venv = V.VecCheckNan(V.VecMonitor(V.TorchVecEnv(
+        reset_fn, step_fn, b, seed=SEED, device=dev)))
+    obs0 = venv.reset()
+    got = []
+    t0 = time.perf_counter()
+    for a in acts:
+        got.append(venv.step(a)[:3])
+    api_s = time.perf_counter() - t0
+    episodes = len(venv.venv.get_episode_lengths())
+    venv.close()
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    st, obs, _ = reset_fn(b, g)
+    want = [obs.cpu().numpy()]
+    dev_acts = [torch.as_tensor(a, device=dev) for a in acts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for a in dev_acts:
+        st, obs, rew, done, _ = step_fn(st, a, g)
+        outs.append((obs, rew, done))
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    if not np.array_equal(obs0, want[0]):
+        fail("vec: TorchVecEnv reset != direct reset_fn")
+    for (o, r, d), (wo, wr, wd) in zip(got, outs):
+        if not (np.array_equal(o, wo.cpu().numpy())
+                and np.array_equal(r, wr.cpu().double().numpy())
+                and np.array_equal(d, wd.cpu().numpy())):
+            fail("vec: TorchVecEnv step != direct step_fn from the same seed")
+
+    # calibration: the card against the CPU
+    cal = {}
+    v = np.linspace(-1.0, 22.0, 93).astype(np.float32)
+    want_a = np.linspace(-9.0, 6.0, 61).astype(np.float32)
+    vv, aa = np.meshgrid(v, want_a, indexing="ij")
+    for name, brake in (("acc", False), ("dec", True)):
+        tg = CAL.measure_table(brake=brake, device=dev)
+        tc = CAL.measure_table(brake=brake, device="cpu")
+        err = float((tg.acc.cpu() - tc.acc).abs().max())
+        if err > 1e-6:
+            fail(f"vec: {name} table card vs CPU differs by {err}")
+        cg = CAL.feedforward_command(tg, torch.as_tensor(vv, device=dev),
+                                     torch.as_tensor(aa, device=dev))
+        cc = CAL.feedforward_command(tc, torch.as_tensor(vv),
+                                     torch.as_tensor(aa))
+        if not torch.equal(cg.cpu(), cc):
+            fail(f"vec: feedforward_command on the {name} table card != CPU")
+        cal[name] = {"table_max_abs_err": err,
+                     "table_bit_equal": bool(torch.equal(tg.acc.cpu(), tc.acc)),
+                     "commands_equal": int(cc.numel())}
+
+    # a torch.profiler trace of one PPO update (tests/test_algos.py config)
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    init, upd = ppo.make_ppo(C.identity_env(3), ppo.PPOConfig(
+        n_steps=32, n_epochs=4, n_minibatches=4))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    pst = init(g, 32)
+    pst, _ = upd(pst, g)
+    with PR.trace(trace_dir):
+        with PR.annotate("ppo_update"):
+            pst, _ = upd(pst, g)
+        torch.cuda.synchronize()
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        fail(f"vec: profiling.trace wrote {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_us = [ev.get("dur", 0.0) for ev in events
+                 if ev.get("cat") == "kernel"]
+    span_us = [ev.get("dur", 0.0) for ev in events
+               if ev.get("name") == "ppo_update"]
+    kernels = len(kernel_us)
+    if kernels < 1 or not span_us:
+        fail(f"vec: the trace holds {kernels} CUDA kernel events and "
+             f"{len(span_us)} ppo_update spans")
+    # the device's busy share of the update: kernel time over the span
+    busy = sum(kernel_us) / max(span_us)
+
+    # nan_guard over every learner's final state
+    guarded = dict(algo_states or {}, ppo_traced=pst)
+    for name, s in guarded.items():
+        NG.assert_finite(s, f"{name} final state")
+        if not bool(NG.check_finite(s)):
+            fail(f"vec: check_finite({name}) is False")
+    emit("vec", envs=b, steps=steps, episodes_ended=episodes,
+         api_env_steps_per_s=b * steps / api_s,
+         direct_env_steps_per_s=b * steps / direct_s, bit_equal=True,
+         calibration=cal, trace_kernel_events=kernels,
+         ppo_update_span_ms=max(span_us) / 1e3,
+         ppo_update_kernel_ms=sum(kernel_us) / 1e3,
+         ppo_update_device_busy_share=busy,
+         trace_events=len(events), nan_guard_states=sorted(guarded),
+         seconds=time.perf_counter() - t_phase, gpu=gpu)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = None
     if argv:
         only = set(argv[1].split(",")) if len(argv) == 2 \
             and argv[0] == "--only" else None
-        if not only or not only <= {"lane", "field"}:
-            print("usage: chip_smoke.py [--only lane,field]", file=sys.stderr)
+        if not only or not only <= {"lane", "field", "vec", "algos"}:
+            print("usage: chip_smoke.py [--only lane,field,algos,vec]",
+                  file=sys.stderr)
             return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2135,6 +2644,9 @@ def main(argv=None) -> int:
             lane_phase(store_kernels, _cuda, gpu, dev)
         if "field" in only:
             field_phase(gpu, dev)
+        states = algos_phase(gpu, dev) if "algos" in only else None
+        if "vec" in only:
+            vec_phase(gpu, dev, states)
         return 0
 
     env_cfg = EnvConfig()
@@ -2641,6 +3153,10 @@ def main(argv=None) -> int:
     lane = lane_phase(sk, _cuda, gpu, dev)
     note_err("sorted_moments", lane["max_abs_err"])
     field_phase(gpu, dev)
+
+    # --- the algorithm family, then the vec-env wrappers and utilities
+    # (no store kernel on this path)
+    vec_phase(gpu, dev, algos_phase(gpu, dev))
 
     emit("done", seconds=time.perf_counter() - t_start,
          gated_on_trainer_store_gate_share=ts_gate)

@@ -121,6 +121,7 @@ def golden_init(state_num: int, action_num: int, capacity: int,
                 dtype=torch.float64, device=None) -> GoldenTable:
     """Rule action optimistic (``rule_prior``), the others
     ``other_prior`` (test_DCARL.py:47-53)."""
+    device = resolve_device(device)
     tsrl = torch.full((state_num, action_num), cfg.other_prior, dtype=dtype,
                       device=device)
     tsrl[:, cfg.rule_action] = cfg.rule_prior
@@ -346,6 +347,7 @@ class RunningTable(NamedTuple):
 def running_init(shape, cfg: ConfidenceConfig = ConfidenceConfig(),
                  dtype=torch.float32, device=None) -> RunningTable:
     """``shape`` = (..., state_num, action_num)."""
+    device = resolve_device(device)
     tsrl = torch.full(tuple(shape), cfg.other_prior, dtype=dtype, device=device)
     tsrl[..., cfg.rule_action] = cfg.rule_prior
     return RunningTable(

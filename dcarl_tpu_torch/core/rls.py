@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from dcarl_tpu_torch.config import StoreConfig
+from dcarl_tpu_torch.device import resolve_device
 from dcarl_tpu_torch.core.store import (ConfidenceStore, _raw_moments,
                                         box_query_stats, moments_to_stats,
                                         store_insert, store_valid)
@@ -134,6 +135,7 @@ class TrajectoryBuffer(NamedTuple):
 
 def traj_buffer_init(window: int, obs_dim: int, dtype=torch.float32,
                      device=None) -> TrajectoryBuffer:
+    device = resolve_device(device)
     return TrajectoryBuffer(
         obs=torch.zeros((window, obs_dim), dtype=dtype, device=device),
         action=torch.zeros((window,), dtype=dtype, device=device),

@@ -25,6 +25,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from dcarl_tpu_torch.device import resolve_device
+
 # Half-widths of the 21-D (20-D obs + action) query box, from
 # deepq/RLS.py:68.  Action half-width 0.1 => action matches exactly.
 FIELD_HALF_WIDTHS = (
@@ -52,6 +54,10 @@ class ConfidenceStore(NamedTuple):
 
 def store_init(capacity: int, key_dim: int, dtype=torch.float32,
                device=None) -> ConfidenceStore:
+    """An empty ring of ``capacity`` rows on ``device`` (``cuda`` unless
+    the caller passes ``device="cpu"``)."""
+    device = resolve_device(device)
+
     def z(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 

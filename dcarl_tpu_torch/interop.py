@@ -14,7 +14,7 @@ port's modules, so both packages can start from the same state.
 
 from __future__ import annotations
 
-from typing import Any, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +22,7 @@ from torch import nn
 
 from dcarl_tpu_torch.cognition.locator import StaticLocalMap
 from dcarl_tpu_torch.core.store import ConfidenceStore
+from dcarl_tpu_torch.device import resolve_device
 from dcarl_tpu_torch.env import driving_env as de
 from dcarl_tpu_torch.env.multilane_env import MultiLaneEnvState
 from dcarl_tpu_torch.models.networks import AttentionQNet
@@ -247,12 +248,21 @@ def qnet_from_flax(params: Any, net: nn.Module) -> nn.Module:
     return net
 
 
-def adam_state_from_optax(opt_state: Any, optimizer: torch.optim.Adam,
-                          net: nn.Module) -> None:
+def adam_state_from_optax(opt_state: Any,
+                          optimizer: "Optional[torch.optim.Adam]",
+                          net: Optional[nn.Module], device=None):
     """Load ``optax.adam``'s state ``(count, mu, nu)`` (its
     ``ScaleByAdamState``, alone or first in the chain's tuple) into
     ``optimizer``, a ``torch.optim.Adam`` over ``net``'s parameters, as
-    each parameter's (step, exp_avg, exp_avg_sq)."""
+    each parameter's (step, exp_avg, exp_avg_sq).
+
+    With ``optimizer=None`` it returns instead the whole optax state as
+    the state of the port's functional transform of the same layout
+    (``algos.common.adam``, chained or not) on ``device``, the moments
+    on ``net``'s parameter dict (``net`` None: one array, as SAC's
+    ``log_alpha``)."""
+    if optimizer is None:
+        return _optax_state(opt_state, net, resolve_device(device))
     st = opt_state
     if not hasattr(st, "mu"):
         st = next(s for s in opt_state if hasattr(s, "mu"))
@@ -267,3 +277,100 @@ def adam_state_from_optax(opt_state: Any, optimizer: torch.optim.Adam,
                 "step": torch.tensor(step, dtype=torch.float32),
                 "exp_avg": torch.as_tensor(m.T if tr else m).to(p),
                 "exp_avg_sq": torch.as_tensor(v.T if tr else v).to(p)}
+
+
+# ---------------------------------------------------------------------------
+# The algorithm family (``algos/``): flax params, ACKTR's Dense lists and
+# the optax states
+
+
+def algo_params_from_flax(tree: Any, module: nn.Module, device=None
+                          ) -> Dict[str, torch.Tensor]:
+    """The flax params of an ``algos`` module (``nets``' modules, ACER's
+    ``PolicyQNet``, GAIL's ``Adversary``, HER's ``MLP``; with or without
+    the ``params`` level; or any tree of that layout, such as one of
+    Adam's moments) as the port module's parameter dict on ``device``: a
+    ``Dense`` kernel ``[in, out]`` becomes ``weight = kernel.T``, a
+    ``log_std`` is copied as it is.  The module's ``FLAX`` (or
+    ``flax_key``) names each child's flax node."""
+    device = resolve_device(device)
+    tree = _fields(tree)
+    if "params" in tree:
+        tree = _fields(tree["params"])
+    out: Dict[str, torch.Tensor] = {}
+
+    def key(mod, name):
+        return mod.FLAX[name] if hasattr(mod, "FLAX") else mod.flax_key(name)
+
+    def leaf(a, transpose=False):
+        a = np.array(a)
+        return torch.as_tensor(a.T if transpose else a).to(device)
+
+    def walk(mod, node, prefix, owner=None):
+        """``owner``: the module that names a ModuleList's children."""
+        for name, _ in mod.named_parameters(recurse=False):
+            out[prefix + name] = leaf(node[key(mod, name)])
+        for name, child in mod.named_children():
+            if isinstance(child, nn.ModuleList):   # MLP.layers: Dense_<i>
+                walk(child, node, prefix + name + ".", owner=mod)
+                continue
+            k = key(owner or mod, name)
+            if isinstance(child, nn.Linear):
+                d = _fields(node[k])
+                out[prefix + name + ".weight"] = leaf(d["kernel"], True)
+                out[prefix + name + ".bias"] = leaf(d["bias"])
+            else:
+                walk(child, _fields(node[k]), prefix + name + ".")
+
+    walk(module, tree, "")
+    return {name: out[name] for name, _ in module.named_parameters()}
+
+
+def acktr_params_from_numpy(layers: Any, device=None):
+    """ACKTR's explicit ``Dense(w [in, out], b)`` list (``acktr.py:62-110``,
+    not flax) as the port's, on ``device``."""
+    from dcarl_tpu_torch.algos.acktr import Dense
+
+    device = resolve_device(device)
+    return [Dense(_to(l.w, device, torch.float32),
+                  _to(l.b, device, torch.float32)) for l in layers]
+
+
+def _optax_state(state: Any, module: Optional[nn.Module], device):
+    """An optax state (a chain's nested tuples of ``EmptyState``,
+    ``ScaleByAdamState``, ``ScaleByRmsState``, ``ScaleByScheduleState``)
+    as the port's transform state of the same layout; the moments follow
+    ``module``'s parameter dict (``module`` None: they are one array, as
+    SAC's ``log_alpha``)."""
+    from dcarl_tpu_torch.algos import common as C
+
+    def moments(tree):
+        if module is None:
+            return _to(tree, device, torch.float32)
+        return algo_params_from_flax(tree, module, device)
+
+    def count(c):
+        return _to(c, device, torch.int32)
+
+    kind = type(state).__name__
+    if kind == "ScaleByAdamState":
+        return C.ScaleByAdamState(count(state.count), moments(state.mu),
+                                  moments(state.nu))
+    if kind == "ScaleByRmsState":
+        return C.ScaleByRmsState(moments(state.nu))
+    if kind == "ScaleByScheduleState":
+        return C.ScaleByScheduleState(count(state.count))
+    if kind == "EmptyState":
+        return C.EmptyState()
+    if isinstance(state, tuple):
+        return tuple(_optax_state(s, module, device) for s in state)
+    raise TypeError(f"no port counterpart of optax state {kind}")
+
+
+def rmsprop_state_from_optax(opt_state: Any, module: Optional[nn.Module],
+                             device=None):
+    """An optax state holding ``optax.rmsprop``'s (``chain(clip, rmsprop)``
+    or alone) as the state of the port's transform of the same layout
+    (``algos.common.rmsprop``), its ``nu`` on ``module``'s parameters."""
+    device = resolve_device(device)
+    return _optax_state(opt_state, module, device)

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from dcarl_tpu_torch.config import DQNConfig
+from dcarl_tpu_torch.device import resolve_device
 from dcarl_tpu_torch.models import replay as RB
 from dcarl_tpu_torch.models import trustset as TS
 from dcarl_tpu_torch.models.replay import Batch
@@ -235,6 +236,7 @@ class ParamNoiseState(NamedTuple):
 
 def param_noise_init(initial_scale: float = 0.01, device=None
                      ) -> ParamNoiseState:
+    device = resolve_device(device)
     return ParamNoiseState(
         scale=torch.full((), initial_scale, dtype=torch.float32, device=device),
         threshold=torch.zeros((), dtype=torch.float32, device=device))

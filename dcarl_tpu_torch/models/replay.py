@@ -15,6 +15,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from dcarl_tpu_torch.device import resolve_device
+
 
 class Replay(NamedTuple):
     obs: torch.Tensor       # [N, D]
@@ -28,11 +30,20 @@ class Replay(NamedTuple):
 
 
 def replay_init(capacity: int, obs_dim: int, dtype=torch.float32,
-                device=None) -> Replay:
+                device=None, action_shape: tuple = (),
+                action_dtype=None) -> Replay:
+    """Discrete by default (scalar i32 actions); ``action_shape=(A,)``
+    for continuous-control buffers (the fork's DDPG/TD3/SAC ReplayBuffer
+    stores float action vectors)."""
+    device = resolve_device(device)
+    if action_dtype is None:
+        action_dtype = torch.int32 if tuple(action_shape) == () else dtype
+
     def z(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    return Replay(obs=z(capacity, obs_dim), action=z(capacity, dt=torch.int32),
+    return Replay(obs=z(capacity, obs_dim),
+                  action=z(capacity, *action_shape, dt=action_dtype),
                   reward=z(capacity), next_obs=z(capacity, obs_dim),
                   done=z(capacity), priority=z(capacity),
                   size=z(dt=torch.int32), head=z(dt=torch.int32))
@@ -91,7 +102,10 @@ class Batch(NamedTuple):
 def gumbel_noise(shape, generator: torch.Generator, dtype=torch.float32,
                  device=None) -> torch.Tensor:
     """Standard Gumbel draws ``-log(-log(U))``, U uniform on
-    (tiny, 1) as ``jax.random.gumbel`` draws it."""
+    (tiny, 1) as ``jax.random.gumbel`` draws it, on ``generator``'s
+    device unless ``device`` says otherwise."""
+    if device is None:
+        device = generator.device
     tiny = torch.finfo(dtype).tiny
     u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
     return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
@@ -118,6 +132,20 @@ def replay_sample(replay: Replay, gumbel: torch.Tensor, alpha: float = 0.6,
                  next_obs=replay.next_obs[indices],
                  done=replay.done[indices], indices=indices,
                  weights=weights.to(replay.obs.dtype))
+
+
+def replay_take(replay: Replay, indices: torch.Tensor) -> Batch:
+    """The rows at ``indices`` with unit weights: a uniform sample whose
+    indices were drawn outside.  Where every stored priority is equal
+    (every push at the running maximum, none updated, as in the
+    off-policy learners of ``algos/``) it has the distribution of
+    :func:`replay_sample`."""
+    return Batch(obs=replay.obs[indices], action=replay.action[indices],
+                 reward=replay.reward[indices],
+                 next_obs=replay.next_obs[indices],
+                 done=replay.done[indices], indices=indices,
+                 weights=torch.ones(indices.shape, dtype=replay.obs.dtype,
+                                    device=indices.device))
 
 
 def replay_update_priorities(replay: Replay, indices: torch.Tensor,

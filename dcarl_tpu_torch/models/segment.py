@@ -39,6 +39,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from dcarl_tpu_torch.config import DQNConfig, EnvConfig, WerlingConfig
+from dcarl_tpu_torch.device import resolve_device
 from dcarl_tpu_torch.env.scenario import Scenario, t_intersection
 from dcarl_tpu_torch.models import dqn as DQ
 from dcarl_tpu_torch.models import replay as RB
@@ -87,6 +88,7 @@ class SegmentRecords(NamedTuple):
 def segment_init(batch: int, obs_dim: int,
                  cfg: SegmentConfig = SegmentConfig(),
                  dtype=torch.float32, device=None) -> SegmentHold:
+    device = resolve_device(device)
     l = cfg.max_len
 
     def z(*shape, dt=dtype):

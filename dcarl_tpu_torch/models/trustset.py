@@ -27,6 +27,7 @@ from dcarl_tpu_torch.config import ConfidenceConfig
 from dcarl_tpu_torch.core import confidence as C
 from dcarl_tpu_torch.core.rls import all_action_stats
 from dcarl_tpu_torch.core.store import ConfidenceStore, store_init, store_insert
+from dcarl_tpu_torch.device import resolve_device
 
 
 class TrustSet(NamedTuple):
@@ -36,6 +37,7 @@ class TrustSet(NamedTuple):
 
 def trustset_init(capacity: int, enc_dim: int, state_half_width: float = 0.3,
                   device=None) -> TrustSet:
+    device = resolve_device(device)
     w = torch.full((enc_dim + 1,), state_half_width, dtype=torch.float32,
                    device=device)
     w[-1] = 0.1  # exact action match

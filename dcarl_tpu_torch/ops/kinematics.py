@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from dcarl_tpu_torch.device import resolve_device
 from dcarl_tpu_torch.ops.geometry import FrenetState, cartesian_to_frenet
 
 
@@ -34,6 +35,7 @@ class RigidBodyState(NamedTuple):
     def create(cls, position=None, orientation=None, linear_vel=None,
                angular_vel=None, linear_acc=None, angular_acc=None,
                dtype: torch.dtype = torch.float32, device=None):
+        device = resolve_device(device)
         z3 = torch.zeros((3,), dtype=dtype, device=device)
         qi = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
 

@@ -47,13 +47,18 @@ def _module_path(fn: Callable) -> "tuple[str, str]":
 
 
 def run_ranks(fn: Callable, world_size: int, backend: str = "gloo",
-              device: str = "cpu", timeout_s: float = 60.0,
+              device: "str | None" = None, timeout_s: float = 60.0,
               args: Sequence[Any] = ()) -> List[Any]:
     """Run ``fn(mesh, *args)`` on ``world_size`` ranks of one process
     group (``backend`` "gloo" or "nccl", every rank's tensors on
     ``device``) and return the ranks' results in rank order.  ``fn`` is
     a module-level function; its module and ``args`` must import and
-    unpickle in a fresh interpreter."""
+    unpickle in a fresh interpreter.  ``device=None`` puts the ranks on
+    ``cuda`` (which must exist), as every entry point of the port does;
+    pass ``device="cpu"`` for host ranks."""
+    from dcarl_tpu_torch.device import resolve_device
+
+    device = str(resolve_device(device))
     module, path = _module_path(fn)
     with tempfile.TemporaryDirectory(prefix="dcarl_ranks_") as tmp:
         tmp = Path(tmp)

@@ -48,17 +48,19 @@ def make_mesh(axis_name: str = "env", group=None,
                        dist.get_world_size(group), dev, backend, axis_name)
 
 
-def tree_map(fn, x):
+def tree_map(fn, x, *rest):
     """``fn`` over every tensor of a tensor, NamedTuple, tuple, list or
-    dict (other leaves unchanged)."""
+    dict (other leaves unchanged), and over the matching leaves of
+    ``rest``, trees of the same structure."""
     if isinstance(x, torch.Tensor):
-        return fn(x)
+        return fn(x, *rest)
     if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(tree_map(fn, v) for v in x))
+        return type(x)(*(tree_map(fn, *vs) for vs in zip(x, *rest)))
     if isinstance(x, (tuple, list)):
-        return type(x)(tree_map(fn, v) for v in x)
+        return type(x)(tree_map(fn, *vs) for vs in zip(x, *rest))
     if isinstance(x, dict):
-        return {k: tree_map(fn, v) for k, v in x.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in x.items()}
     return x
 
 

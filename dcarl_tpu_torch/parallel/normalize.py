@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from dcarl_tpu_torch.device import resolve_device
 from dcarl_tpu_torch.parallel.collectives import psum
 from dcarl_tpu_torch.parallel.mesh import ProcessMesh
 
@@ -26,6 +27,7 @@ class RunningMeanStd(NamedTuple):
 
 def rms_init(shape, epsilon: float = 1e-4, dtype=torch.float32,
              device=None) -> RunningMeanStd:
+    device = resolve_device(device)
     return RunningMeanStd(
         mean=torch.zeros(shape, dtype=dtype, device=device),
         var=torch.ones(shape, dtype=dtype, device=device),
@@ -83,6 +85,7 @@ class VecNormalizeState(NamedTuple):
 
 def vec_normalize_init(obs_shape, batch: int, device=None
                        ) -> VecNormalizeState:
+    device = resolve_device(device)
     return VecNormalizeState(
         obs_rms=rms_init(obs_shape, device=device),
         ret_rms=rms_init((), device=device),

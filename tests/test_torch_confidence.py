@@ -123,7 +123,7 @@ def test_golden_run_waves_match_the_row_loop(golden_pair):
     cap = C.required_capacity(data, 20, 11)
     table_w, out_w = C.golden_run(data, av, action_num=11, capacity=cap,
                                   cfg=CFG, device="cpu")
-    table = C.golden_init(20, 11, cap, CFG)
+    table = C.golden_init(20, 11, cap, CFG, device="cpu")
     outs = []
     for row in torch.as_tensor(data):
         table, out = C.golden_update(table, int(row[0]), int(row[2]), row[3],
@@ -183,7 +183,7 @@ def test_running_table_matches_jax_and_golden(golden_pair):
     golden table's decisions (``tests/test_confidence.py:134``)."""
     data, _, out_j, _, _ = golden_pair
     data = data[:600]
-    t = C.running_init((20, 11), CFG, dtype=torch.float64)
+    t = C.running_init((20, 11), CFG, dtype=torch.float64, device="cpu")
     tj = JC.running_init((20, 11), JCFG, dtype=jnp.float64)
     acts = []
     for row in data:
@@ -205,7 +205,7 @@ def test_running_update_batch_matches_jax_and_vmapped_streams():
     idx = rng.integers(0, s, (b, n))
     act = rng.integers(0, a, (b, n))
     val = rng.normal(10, 30, (b, n))
-    one = C.running_update_batch(C.running_init((s, a), CFG, torch.float64),
+    one = C.running_update_batch(C.running_init((s, a), CFG, torch.float64, "cpu"),
                                  _t(idx[0]), _t(act[0]), _t(val[0]), CFG)
     ref = JC.running_update_batch(JC.running_init((s, a), JCFG, jnp.float64),
                                   jnp.asarray(idx[0]), jnp.asarray(act[0]),
@@ -216,7 +216,7 @@ def test_running_update_batch_matches_jax_and_vmapped_streams():
                                    rtol=1e-12, atol=1e-9, err_msg=name)
     # b independent streams at once (JAX: vmap over streams)
     many = C.running_update_batch(
-        C.running_init((b, s, a), CFG, torch.float64), _t(idx), _t(act),
+        C.running_init((b, s, a), CFG, torch.float64, "cpu"), _t(idx), _t(act),
         _t(val), CFG)
     vm = jax.vmap(lambda i, ac, v: JC.running_update_batch(
         JC.running_init((s, a), JCFG, jnp.float64), i, ac, v, JCFG))(
@@ -244,7 +244,7 @@ def test_argmax_takes_the_first_of_tied_maxima():
     np.testing.assert_array_equal(act.numpy(), [1, 3, 0])
     np.testing.assert_array_equal(val.numpy(), [-50.0, 5.0, 2.5])
     # in the golden loop: the rule's cell drops below the tied priors
-    table = C.golden_init(1, 11, 16, CFG)
+    table = C.golden_init(1, 11, 16, CFG, device="cpu")
     table.tsrl[0, 0] = -60.0
     _, out = C.golden_update(table, 0, 5, torch.tensor(1.0, dtype=torch.float64),
                              torch.zeros((1, 11), dtype=torch.float64), CFG)

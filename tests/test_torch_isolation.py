@@ -77,6 +77,13 @@ def test_port_import_pulls_in_no_jax():
         "import dcarl_tpu_torch.cognition\n"
         "import dcarl_tpu_torch.navigation\n"
         "import dcarl_tpu_torch.navigation.opendrive\n"
+        "import dcarl_tpu_torch.parallel.vec_env\n"
+        "import dcarl_tpu_torch.control.calibration\n"
+        "import dcarl_tpu_torch.utils.nan_guard\n"
+        "import dcarl_tpu_torch.utils.profiling\n"
+        "import dcarl_tpu_torch.algos\n"
+        "from dcarl_tpu_torch.algos import (a2c, acer, acktr, common, ddpg,\n"
+        "    gail, her, nets, ppo, sac, td3, trpo)\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_rank_programs\n"
         "bad = [m for m in sys.modules\n"

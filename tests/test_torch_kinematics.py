@@ -85,16 +85,16 @@ def test_identity_base_and_create_defaults():
         position=[1.0, 2.0, 0.0], linear_vel=[3.0, 0.0, 0.0],
         linear_acc=[0.5, 0.1, 0.0],
         orientation=K.yaw_to_quaternion(torch.tensor(0.3)),
-        dtype=torch.float64)
+        dtype=torch.float64, device="cpu")
     out = K.get_absolute_state(rel, K.RigidBodyState.create(
-        dtype=torch.float64))
+        dtype=torch.float64, device="cpu"))
     for a, b in zip(out, rel):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-12)
     # centripetal term: a body at r = 2 on a base spinning at w = 3
     spin = K.RigidBodyState.create(angular_vel=[0.0, 0.0, 3.0],
-                                   dtype=torch.float64)
+                                   dtype=torch.float64, device="cpu")
     far = K.RigidBodyState.create(position=[2.0, 0.0, 0.0],
-                                  dtype=torch.float64)
+                                  dtype=torch.float64, device="cpu")
     np.testing.assert_allclose(
         K.get_absolute_state(far, spin).linear_acc.numpy(),
         [-18.0, 0.0, 0.0], atol=1e-12)

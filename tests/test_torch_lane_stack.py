@@ -402,7 +402,7 @@ def lane_store():
     j_store = JST.store_insert(JST.store_init(n, 21), jnp.asarray(keys),
                                jnp.asarray(act), jnp.asarray(vals),
                                jnp.asarray(mask))
-    t_store = ST.store_insert(ST.store_init(n, 21), torch.as_tensor(keys),
+    t_store = ST.store_insert(ST.store_init(n, 21, device="cpu"), torch.as_tensor(keys),
                               torch.as_tensor(act), torch.as_tensor(vals),
                               torch.as_tensor(mask))
     return j_store, t_store, obs

@@ -90,7 +90,7 @@ def _assert_replay_equal(got: RB.Replay, ref):
 def test_replay_push_matches_jax(cap, pushes):
     rng = np.random.default_rng(cap + len(pushes))
     jr = JRB.replay_init(cap, D)
-    tr = RB.replay_init(cap, D)
+    tr = RB.replay_init(cap, D, device="cpu")
     for i, m in enumerate(pushes):
         rows = _replay_rows(rng, m)
         mask = None if i != 1 else rng.random(m) < 0.6

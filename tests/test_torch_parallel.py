@@ -153,7 +153,7 @@ def test_vec_normalize_semantics():
     rew = np.asarray([1.0, -1.0, 0.5, 0.0], np.float32)
     done = np.asarray([False, True, False, False])
     st_t = TN.vec_normalize_update(
-        TN.vec_normalize_init((3,), batch=4), torch.as_tensor(obs),
+        TN.vec_normalize_init((3,), batch=4, device="cpu"), torch.as_tensor(obs),
         torch.as_tensor(rew), torch.as_tensor(done), gamma=0.9)
     st_j = JN.vec_normalize_update(
         JN.vec_normalize_init((3,), batch=4), jnp.asarray(obs),

@@ -94,7 +94,7 @@ def test_segment_push_matches_jax(seed):
     jc = JSEG.SegmentConfig(r_thres=1.0, pass_thres=10)
     tc = SEG.SegmentConfig(r_thres=1.0, pass_thres=10)
     jh = JSEG.segment_init(3, 4, jc)
-    th = SEG.segment_init(3, 4, tc)
+    th = SEG.segment_init(3, 4, tc, device="cpu")
     _assert_hold_equal(th, jh, "init")
     n_records = 0
     for t in range(rew.shape[0]):
@@ -118,7 +118,7 @@ def test_segment_trigger_on_length_matches_jax():
     jc = JSEG.SegmentConfig(r_thres=1.0, pass_thres=3)
     tc = SEG.SegmentConfig(r_thres=1.0, pass_thres=3)
     b, d = 2, 3
-    jh, th = JSEG.segment_init(b, d, jc), SEG.segment_init(b, d, tc)
+    jh, th = JSEG.segment_init(b, d, jc), SEG.segment_init(b, d, tc, device="cpu")
     zeros, obs = np.zeros(b, np.float32), np.zeros((b, d), np.float32)
     done = np.zeros(b, bool)
     for step in range(tc.pass_thres + 1):

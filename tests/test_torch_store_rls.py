@@ -528,7 +528,7 @@ def _j_store(store):
 def test_store_insert_matches_jax(policy, cap, sizes):
     rng = np.random.default_rng(cap + len(sizes))
     d = 3
-    js, ts = JS.store_init(cap, d), S.store_init(cap, d)
+    js, ts = JS.store_init(cap, d), S.store_init(cap, d, device="cpu")
     for i, m in enumerate(sizes):
         keys = rng.normal(0, 1, (m, d)).astype(np.float32)
         vals = (np.arange(m) + 100.0 * i).astype(np.float32)
@@ -549,7 +549,7 @@ def test_store_dense_block_matches_jax():
     ring, invalid rows stamped with the sentinel key."""
     rng = np.random.default_rng(9)
     d, m, cap = 4, 8, 32
-    js, ts = JS.store_init(cap, d), S.store_init(cap, d)
+    js, ts = JS.store_init(cap, d), S.store_init(cap, d, device="cpu")
     for _ in range(6):
         keys = rng.normal(0, 2, (m, d)).astype(np.float32)
         keys[:, -1] = rng.integers(0, 3, m)
@@ -561,7 +561,7 @@ def test_store_dense_block_matches_jax():
         _assert_store_equal(ts, js)
     assert (ts.keys == S.SENTINEL_KEY).any()
     with pytest.raises(ValueError):
-        S.store_insert_dense_block(S.store_init(30, d), _t(keys), _t(vals),
+        S.store_insert_dense_block(S.store_init(30, d, device="cpu"), _t(keys), _t(vals),
                                    _t(vals), _t(mask))
 
 
@@ -577,7 +577,7 @@ def test_box_query_stats_matches_jax(use_kernel):
             values.astype(np.float32), np.ones(n, bool))
     js = JS.store_insert(JS.store_init(512, d),
                          *(jnp.asarray(a) for a in args))
-    ts = S.store_insert(S.store_init(512, d), *(_t(a) for a in args))
+    ts = S.store_insert(S.store_init(512, d, device="cpu"), *(_t(a) for a in args))
     w = np.array([1.0, 2.0, 0.5, 3.0, 0.1], np.float32)
     queries = rng.normal(0, 5, (64, d)).astype(np.float32)
     queries[:, -1] = rng.integers(0, 8, 64)
@@ -651,8 +651,8 @@ def test_traj_buffer_push_and_insert_match_jax(mode):
     jcfg, cfg = JStoreConfig(**MODES[mode]), StoreConfig(**MODES[mode])
     obs_dim = 4
     jb = JR.traj_buffer_init(jcfg.n_step_window, obs_dim)
-    tb = R.traj_buffer_init(cfg.n_step_window, obs_dim)
-    js, ts = JS.store_init(256, obs_dim + 1), S.store_init(256, obs_dim + 1)
+    tb = R.traj_buffer_init(cfg.n_step_window, obs_dim, device="cpu")
+    js, ts = JS.store_init(256, obs_dim + 1), S.store_init(256, obs_dim + 1, device="cpu")
     n_rec = 0
     for step in range(50):
         obs = rng.normal(0, 1, obs_dim).astype(np.float32)
@@ -676,7 +676,7 @@ def test_traj_buffer_push_and_insert_match_jax(mode):
                                rtol=1e-6, atol=1e-6)
     assert int(ts.size) == min(n_rec, 256) and n_rec > 0
     with pytest.raises(ValueError):
-        R.traj_buffer_push(R.traj_buffer_init(3, obs_dim), _t(obs),
+        R.traj_buffer_push(R.traj_buffer_init(3, obs_dim, device="cpu"), _t(obs),
                            _t(action), _t(rew), _t(done), cfg)
 
 

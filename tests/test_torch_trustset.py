@@ -111,7 +111,7 @@ def test_trustset_gating_and_ucb_match_jax(use_kernel):
     rews = np.asarray([1.0, -1.0, -0.5, 0.3, -0.2], np.float32)
     jts = JTS.add_data(JTS.trustset_init(256, enc_dim=3), jnp.asarray(enc),
                        jnp.asarray(acts), jnp.asarray(rews))
-    ts = TS.add_data(TS.trustset_init(256, enc_dim=3), _t(enc), _t(acts),
+    ts = TS.add_data(TS.trustset_init(256, enc_dim=3, device="cpu"), _t(enc), _t(acts),
                      _t(rews))
     for name in ts.store._fields:
         np.testing.assert_array_equal(getattr(ts.store, name).numpy(),
@@ -165,7 +165,7 @@ def test_d4_kernel_route_matches_pallas_interpret():
     ``box_query_moments_sorted(..., interpret=True)`` on a set of
     duplicated D = 4 rows: counts exact, sums rtol 1e-4 / atol 1e-3."""
     rows, acts, values, q = _duplicated_set(5)
-    ts = TS.trustset_init(2048, 3)
+    ts = TS.trustset_init(2048, 3, device="cpu")
     ts = TS.add_data(ts, _t(rows[:, :3]), _t(acts), _t(values))
     jts = JTS.add_data(JTS.trustset_init(2048, 3), jnp.asarray(rows[:, :3]),
                        jnp.asarray(acts), jnp.asarray(values))
@@ -220,7 +220,7 @@ def _set_from_obs(net_params, seed):
     rew = rng.normal(0, 1, 32).astype(np.float32)
     jts = JTS.add_data(JTS.trustset_init(512, 3), jnp.asarray(enc),
                        jnp.asarray(act), jnp.asarray(rew))
-    ts = TS.add_data(TS.trustset_init(512, 3), _t(enc), _t(act), _t(rew))
+    ts = TS.add_data(TS.trustset_init(512, 3, device="cpu"), _t(enc), _t(act), _t(rew))
     return jts, ts, obs
 
 
@@ -339,7 +339,7 @@ def test_train_step_with_trustset_matches_jax():
     tl8 = DQ.DQN(interop.qnet_from_flax(params, NET.AttentionQNet(A)),
                  cfg=DQNConfig(batch_size=8, replay_capacity=64))
     _, _, ts8, _ = tl8.train_step_with_trustset(
-        tr, torch.zeros((), dtype=torch.int32), TS.trustset_init(256, 3),
+        tr, torch.zeros((), dtype=torch.int32), TS.trustset_init(256, 3, device="cpu"),
         gumbel[:8], encoder=interop.qnet_from_flax(target,
                                                    NET.AttentionQNet(A)))
     assert int(ts8.store.size) == int(jts8.store.size) == 8
@@ -382,7 +382,7 @@ def test_param_noise_matches_jax(frame):
     for scale in (0.01, 0.3):
         pn_j = JDQ.ParamNoiseState(jnp.asarray(scale, jnp.float32),
                                    jnp.asarray(0.0, jnp.float32))
-        pn_t = DQ.param_noise_init(scale)
+        pn_t = DQ.param_noise_init(scale, device="cpu")
         act_j = jpn.act(state, pn_j, jnp.asarray(obs), jax.random.PRNGKey(43))
         act_t = tpn.act(pn_t, _t(obs), noise=noise)
         np.testing.assert_array_equal(act_t.numpy(), np.asarray(act_j))

@@ -82,7 +82,7 @@ def parallel_checks(mesh, p):
     out["w_norm"] = float(D.tree_replicated_norm([w.detach()]))
 
     # running mean / variance over the sharded batch
-    rms = NM.rms_update_distributed(NM.rms_init((5,)),
+    rms = NM.rms_update_distributed(NM.rms_init((5,), device=mesh.device),
                                     shard_leading(torch.as_tensor(p["rms"]),
                                                   mesh), mesh)
     out["rms"] = _np(rms)
@@ -252,3 +252,33 @@ def _leaves(x):
     if isinstance(x, torch.Tensor):
         return [x]
     return [t for v in x for t in _leaves(v)]
+
+
+# ---------------------------------------------------------------------------
+# algos/: PPO over the mesh
+# ---------------------------------------------------------------------------
+
+
+def ppo_mesh_checks(mesh, p=None):
+    """PPO on the identity env (8 envs a rank, n_steps 4, 2 x 2
+    minibatches): one update over the mesh from the same init on the
+    same draws as a one-rank update (must match it bit for bit), and one
+    on this rank's own draws (the test holds the ranks bit-equal)."""
+    from dcarl_tpu_torch.algos import common as C
+    from dcarl_tpu_torch.algos import ppo as PPO
+
+    env = C.identity_env(3)
+    cfg = PPO.PPOConfig(n_steps=4, n_epochs=2, n_minibatches=2)
+    init, upd_mesh = PPO.make_ppo(env, cfg, (16, 16), mesh=mesh)
+    _, upd_one = PPO.make_ppo(env, cfg, (16, 16))
+    state = init(torch.Generator().manual_seed(0), 8)
+    draws = upd_one.draw(state, torch.Generator().manual_seed(1))
+    same, _ = upd_mesh.with_draws(state, draws)
+    one, _ = upd_one.with_draws(state, draws)
+    own_draws = upd_one.draw(state, torch.Generator().manual_seed(
+        10 + mesh.rank))
+    own, _ = upd_mesh.with_draws(state, own_draws)
+    return {"same_draws_equal_one_rank": all(
+        torch.equal(same.params[k], one.params[k]) for k in one.params),
+        "same_draws": {k: _np(v) for k, v in same.params.items()},
+        "own_draws": {k: _np(v) for k, v in own.params.items()}}
