@@ -153,6 +153,36 @@ closed-loop CLIs (``examples/run_improvement.py``,
                 torch.profiler trace of one PPO update (CUDA kernel
                 events, the device's busy share); nan_guard over every
                 trained learner's state
+  host          the C++ host library (utils/native.py) built with g++ from
+                csrc/dcarl_host.cpp into build/torch_host/ (its seconds
+                reported); a HostBoxStore of the agent's 2^17 rows at
+                D = 21: 1,024 single grid-hash queries against the exact
+                scan (counts equal, moments within 1e-12) and both against
+                box_query_stats on the card (one sorted_moments launch;
+                counts exact, means and variances within rtol 1e-4 / atol
+                1e-3), microseconds a host query beside milliseconds a card
+                call; a 2^17 x 22 f64 array through RecordLog,
+                AsyncLogWriter, npy_mmap and NpyStream, byte-equal
+  bridge        the DCARL agent (bridge/agent_session.py) at the example's
+                widths (StoreConfig(), replay 2^16, MLPQNet 8 x 128)
+                served over TCP by bridge/agent_server.py: a cold first
+                tick timed on a throwaway session, whose training ticks
+                past its first SGD steps wait for the card once each; the
+                ported selftest (400 ticks, training) with ticks/s and
+                round-trip latency, then its ticks again in its logged
+                order on the card (actions equal, losses within rtol 1e-5
+                / atol 1e-6) and on the CPU from the card's learner state
+                of each tick (the same); then test mode on a full store
+                of the agent's rows, 4 concurrent planners x 64 messages,
+                equal to a CPU session replaying the card's order of
+                arrival, a card replay timing each launch; one
+                sorted_moments launch (8 queries, D = 21) a tick in both
+                served runs; the tick's launch against the plain version
+                and again bit-equal; a traced stretch of ticks (one sync
+                a tick, kernels, device busy share).  The clients fall
+                back to -1 and the served policy records any exception: a
+                fallback, an exception or a tick count other than the
+                requests fails the phase
 
 Each rate comes from a run without probes; a replay of the same run then
 times each launch and reports its plan (kept and window sub-slices per
@@ -168,7 +198,8 @@ without a CUDA device or without the package beside it.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only lane,field   # build, then those phases
-    python3 chip_smoke.py --only algos,vec    # this slice's phases
+    python3 chip_smoke.py --only algos,vec
+    python3 chip_smoke.py --only bridge,host  # the host layer and the agent
 """
 
 from __future__ import annotations
@@ -2585,15 +2616,587 @@ def vec_phase(gpu: str, dev, algo_states=None) -> None:
          seconds=time.perf_counter() - t_phase, gpu=gpu)
 
 
+# ---------------------------------------------------------------------------
+# The host layer and the DCARL agent served over TCP (bridge/, utils/native)
+# ---------------------------------------------------------------------------
+
+# The agent's store: StoreConfig()'s 2^17 rows at D = 21 near 256 planner
+# states drawn as the example's selftest draws them; 400 selftest ticks;
+# 4 planners x 64 messages in test mode; 1,024 single host queries
+AGENT_ROWS, AGENT_ANCHORS = 1 << 17, 256
+SELFTEST_TICKS = 400
+AGENT_CLIENTS, AGENT_MESSAGES = 4, 64
+HOST_QUERIES = 1024
+
+
+class AgentData(NamedTuple):
+    keys: np.ndarray     # [N, 21] f32 state || action
+    actions: np.ndarray  # [N] f32
+    values: np.ndarray   # [N] f32
+    anchors: np.ndarray  # [K, 20] f64 planner states
+
+
+def agent_data(rng) -> AgentData:
+    """Store rows near ``anchors`` planner states (ego lane 0 / 1, speed
+    in [0, 12], 16 object floats ~ N(0, 5): the example selftest's
+    states), each within a fifth of the half-widths of its anchor, the
+    actions spread evenly, values drawn around a mean in [-1, 0] for
+    each (anchor, action)."""
+    from dcarl_tpu_torch.bridge.agent_session import HALF_WIDTHS, NUM_ACTIONS
+
+    n, k = AGENT_ROWS, AGENT_ANCHORS
+    hw = np.asarray(HALF_WIDTHS)
+    anchors = np.zeros((k, 20))
+    anchors[:, 1] = rng.integers(0, 2, k)
+    anchors[:, 2] = rng.uniform(0, 12, k)
+    anchors[:, 4:] = rng.normal(0, 5, (k, 16))
+    mu = rng.uniform(-1.0, 0.0, (k, NUM_ACTIONS))
+    idx = rng.integers(0, k, n)
+    act = np.arange(n) % NUM_ACTIONS
+    keys = np.empty((n, 21), np.float32)
+    keys[:, :20] = anchors[idx] + rng.uniform(-0.2, 0.2, (n, 20)) * hw[:20]
+    keys[:, 20] = act
+    vals = (mu[idx, act] + rng.normal(0, 0.1, n)).astype(np.float32)
+    return AgentData(keys, act.astype(np.float32), vals, anchors)
+
+
+def agent_traffic(rng, anchors: np.ndarray, n: int) -> list:
+    """``n`` planner messages near the anchors: 20 floats, then the
+    collision flag (2 %) and the leave flag (0)."""
+    from dcarl_tpu_torch.bridge.agent_session import HALF_WIDTHS
+
+    hw = np.asarray(HALF_WIDTHS[:20])
+    pick = rng.integers(0, len(anchors), n)
+    states = anchors[pick] + rng.uniform(-0.2, 0.2, (n, 20)) * hw
+    return [[float(x) for x in s] + [int(rng.random() < 0.02), 0]
+            for s in states]
+
+
+def agent_store(data: AgentData, dev):
+    from dcarl_tpu_torch.core.store import ConfidenceStore
+
+    n = data.keys.shape[0]
+    return ConfidenceStore(
+        torch.as_tensor(data.keys, device=dev),
+        torch.as_tensor(data.actions, device=dev),
+        torch.as_tensor(data.values, device=dev),
+        torch.full((), n, dtype=torch.int32, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def guarded(policy, log: list, errors: list):
+    """``policy`` serialised under its own lock, each call's (message,
+    reply) logged in the order the calls ran, and any exception recorded
+    before it propagates (the bridge would turn it into a closed socket
+    and the client into its fallback)."""
+    import threading
+
+    lock = threading.Lock()
+
+    def wrapped(msg):
+        with lock:
+            try:
+                reply = policy(msg)
+            except Exception as e:
+                errors.append(repr(e))
+                raise
+            log.append((msg, reply))
+            return reply
+    return wrapped
+
+
+def host_phase(gpu: str, dev, data: AgentData) -> dict:
+    """The C++ host library (``utils/native.py``) built from
+    ``csrc/dcarl_host.cpp``: a ``HostBoxStore`` of the agent's rows, its
+    grid-hash queries against ``exact=True`` (counts equal, means and
+    variances within 1e-12: the two sum in another order) and both
+    against ``core/store.box_query_stats`` on the card (one
+    ``sorted_moments`` launch; counts exact, means and variances within
+    rtol 1e-4 / atol 1e-3); a 2^17 x 22 f64 array through ``RecordLog``,
+    ``AsyncLogWriter``, ``npy_mmap`` and ``NpyStream``, byte-equal."""
+    from dcarl_tpu_torch.bridge.agent_session import HALF_WIDTHS, NUM_ACTIONS
+    from dcarl_tpu_torch.core import store as ST
+    from dcarl_tpu_torch.ops import _cuda
+    from dcarl_tpu_torch.utils import native as NV
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    NV.load_library()
+    build_s = time.perf_counter() - t0
+
+    n, d = data.keys.shape
+    host = NV.HostBoxStore(np.asarray(HALF_WIDTHS))
+    keys64 = data.keys.astype(np.float64)
+    t0 = time.perf_counter()
+    for i in range(n):
+        host.insert(keys64[i], data.actions[i], data.values[i])
+    insert_s = time.perf_counter() - t0
+    if len(host) != n:
+        fail(f"host: {len(host)} rows in the host store, {n} inserted")
+
+    rng = np.random.default_rng(SEED + 60)
+    nq = HOST_QUERIES
+    states = np.array(agent_traffic(rng, data.anchors, nq))[:, :20]
+    q = np.concatenate([states, rng.integers(0, NUM_ACTIONS, (nq, 1))], 1)
+    q = q.astype(np.float32).astype(np.float64)   # the card's f32 queries
+    t0 = time.perf_counter()
+    grid = np.array([host.query(x) for x in q])
+    grid_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact = np.array([host.query(x, exact=True) for x in q])
+    exact_s = time.perf_counter() - t0
+    if not np.array_equal(grid[:, 0], exact[:, 0]):
+        fail("host: grid-hash counts differ from the exact scan")
+    grid_err = float(np.abs(grid[:, 1:] - exact[:, 1:]).max())
+    if grid_err > 1e-12:
+        fail(f"host: grid-hash moments differ from the exact scan by "
+             f"{grid_err}")
+
+    store = agent_store(data, dev)
+    hw = torch.tensor(HALF_WIDTHS, dtype=torch.float32, device=dev)
+    q_dev = torch.as_tensor(q.astype(np.float32), device=dev)
+    _cuda.LAUNCHES.clear()
+    stats = ST.box_query_stats(store, q_dev, hw, use_kernel=True)
+    sync(dev)
+    launches = dict(_cuda.LAUNCHES)
+    if launches != {"sorted_moments": 1}:
+        fail(f"host: the card's query launched {launches}")
+    card = np.stack([stats.count.cpu().numpy(), stats.mean.cpu().numpy(),
+                     stats.var.cpu().numpy()], 1).astype(np.float64)
+    errs = {}
+    for label, ref in (("grid", grid), ("exact", exact)):
+        if not np.array_equal(card[:, 0], ref[:, 0]):
+            fail(f"host: the card's counts differ from the host {label} query")
+        if not np.allclose(card[:, 1:], ref[:, 1:], **MOMENT_TOL):
+            fail(f"host: the card's means and variances differ from the host "
+                 f"{label} query beyond rtol 1e-4 / atol 1e-3")
+        errs[label] = float(np.abs(card[:, 1:] - ref[:, 1:]).max())
+    if not (card[:, 0] > 0).any():
+        fail("host: no query matched any row")
+    card_ms = cuda_ms(lambda: ST.box_query_stats(store, q_dev, hw,
+                                                 use_kernel=True))
+    card_ms_8 = cuda_ms(lambda: ST.box_query_stats(
+        store, q_dev[:NUM_ACTIONS], hw, use_kernel=True))
+
+    # the file formats: a 2^17 x 22 f64 array
+    arr = np.random.default_rng(SEED + 61).normal(0, 3, (n, 22))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_host_")
+    files = {}
+    try:
+        t0 = time.perf_counter()
+        log = NV.RecordLog(os.path.join(tmp, "records.bin"), 22)
+        log.append(arr)
+        log.close()
+        back = NV.RecordLog.read(os.path.join(tmp, "records.bin"), 22,
+                                 max_records=n)
+        files["record_log"] = back.tobytes() == arr.tobytes()
+        path = os.path.join(tmp, "records.txt")
+        with NV.AsyncLogWriter(path) as w:
+            for row in arr.tolist():
+                w.append(" ".join(map(repr, row)))
+            w.flush()
+            lines = w.lines_written
+        with open(path) as f:
+            text = np.array(f.read().split(), dtype=np.float64)
+        files["async_log_writer"] = lines == n \
+            and text.reshape(n, 22).tobytes() == arr.tobytes()
+        path = os.path.join(tmp, "records.npy")
+        np.save(path, arr)
+        files["npy_mmap"] = NV.npy_mmap(path).tobytes() == arr.tobytes()
+        with NV.NpyStream(path, chunk_rows=4096) as st:
+            chunks = list(st)
+        files["npy_stream"] = np.concatenate(chunks).tobytes() \
+            == arr.tobytes() and len(chunks) == -(-n // 4096)
+        files_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not all(files.values()):
+        fail(f"host: a file round trip differs: {files}")
+    emit("host", build_seconds=build_s, rows=n, key_dim=d,
+         insert_seconds=insert_s, queries=nq,
+         matched_queries=int((grid[:, 0] > 0).sum()),
+         matches=int(grid[:, 0].sum()),
+         host_grid_us_per_query=grid_s / nq * 1e6,
+         host_exact_us_per_query=exact_s / nq * 1e6,
+         grid_vs_exact_max_abs_err=grid_err,
+         grid_vs_exact_bit_equal=bool(np.array_equal(grid, exact)),
+         card_vs_host_max_abs_err=errs, card_launches=launches,
+         card_ms_per_call=card_ms, card_queries_per_call=nq,
+         card_ms_per_tick_call=card_ms_8, tick_queries=NUM_ACTIONS,
+         files_byte_equal=files, file_rows=n, file_seconds=files_s,
+         seconds=time.perf_counter() - t_phase, gpu=gpu)
+    return dict(max_abs_err=max(errs.values()))
+
+
+def count_syncs(sess, msgs: list) -> dict:
+    """``msgs`` through ``sess.decide`` (no sockets) under CUDA's sync
+    debug mode: the calls that wait for the card, per tick, and where."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for m in msgs:
+                sess.decide(m)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message).lower()]
+    return dict(syncs_per_tick=len(syncs) / len(msgs),
+                sync_sites=sorted(set(syncs))[:8])
+
+
+def agent_tick_profile(sess, msgs: list) -> dict:
+    """Where a tick's time goes: ``msgs`` through ``sess.decide`` once
+    under :func:`count_syncs`, then under ``torch.profiler``: a tick's
+    span, its CUDA kernels (``sorted_moments`` apart) and the device's
+    busy share of the span."""
+    from dcarl_tpu_torch.utils import profiling as PR
+
+    syncs = count_syncs(sess, msgs)
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_agent_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    sync("cuda")
+    with PR.trace(trace_dir):
+        for m in msgs:
+            with PR.annotate("agent_tick"):
+                sess.decide(m)
+        sync("cuda")
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+    spans = [ev["dur"] for ev in events if ev.get("name") == "agent_tick"
+             and ev.get("cat") != "gpu_user_annotation"]
+    ops = [ev for ev in events if ev.get("cat") == "cpu_op"]
+    n = len(msgs)
+    band = [ev["dur"] for ev in kernels if "moments_" in ev.get("name", "")]
+    if not kernels or len(spans) != n:
+        fail(f"bridge: the tick trace holds {len(kernels)} kernel events and "
+             f"{len(spans)} tick spans for {n} ticks")
+    busy = sum(ev["dur"] for ev in kernels)
+    return dict(ticks=n, **syncs,
+                span_ms_mean=float(np.mean(spans)) / 1e3,
+                kernel_events_per_tick=len(kernels) / n,
+                kernel_ms_per_tick=busy / n / 1e3,
+                sorted_kernel_events_per_tick=len(band) / n,
+                sorted_kernel_ms_per_tick=sum(band) / n / 1e3,
+                cpu_ops_per_tick=len(ops) / n,
+                device_busy_share=busy / sum(spans))
+
+
+def recorded_losses(sess) -> list:
+    """Each of ``sess``'s tick losses, appended as the tick returns it (a
+    device scalar: the recording reads nothing back)."""
+    losses, tick = [], sess._tick
+
+    def recorded(*args):
+        out = tick(*args)
+        losses.append(out[1])
+        return out
+
+    sess._tick = recorded
+    return losses
+
+
+# one training tick on the card against the CPU from the same learner
+# state: the per-tick tolerance of tests/test_torch_bridge.py
+TICK_LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def training_replay(dev, order: list, served: list,
+                    served_losses: list) -> dict:
+    """The selftest's ticks again, in the order the served session logged
+    them, on a second card session of the served one's seed (the same
+    draws in the same order) and on a CPU session (plain route) that
+    takes, before each tick, the card session's learner state (nets,
+    Adam, replay, frame) and that tick's card draws.  The card replay's
+    actions equal the served run's and its losses are within
+    ``TICK_LOSS_TOL`` of them; the CPU's actions equal the card's, and
+    its losses are within ``TICK_LOSS_TOL`` of the card's."""
+    from dcarl_tpu_torch.bridge import agent_session as AS
+    from dcarl_tpu_torch.parallel.mesh import tree_map
+
+    def to_cpu(tree):
+        return tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
+
+    card = AS.AgentSession(seed=SEED, is_training=True, device=dev)
+    cpu = AS.AgentSession(seed=SEED, is_training=True, device="cpu")
+    card_l, cpu_l = recorded_losses(card), recorded_losses(cpu)
+    card_a, cpu_a = [], []
+    t0 = time.perf_counter()
+    for m in order:
+        d = card.draw()
+        cpu.load_state(to_cpu(card.checkpoint_state()))
+        card_a.append(card.with_draws(m, d))
+        cpu_a.append(cpu.with_draws(m, to_cpu(d)))
+    seconds = time.perf_counter() - t0
+    if card_a != served:
+        fail("bridge selftest: the card replay's actions differ from the "
+             "served run's")
+    if cpu_a != card_a:
+        i = next(i for i, (a, b) in enumerate(zip(cpu_a, card_a)) if a != b)
+        fail(f"bridge selftest: the CPU decides {cpu_a[i]} where the card "
+             f"decided {card_a[i]} (tick {i})")
+    card_l = torch.stack(card_l).cpu().numpy().astype(np.float64)
+    cpu_l = torch.stack(cpu_l).numpy().astype(np.float64)
+    served_l = torch.stack(served_losses).cpu().numpy().astype(np.float64)
+    if not np.allclose(card_l, served_l, **TICK_LOSS_TOL):
+        fail("bridge selftest: the card replay's losses differ from the "
+             "served run's beyond rtol 1e-5 / atol 1e-6")
+    if not np.allclose(cpu_l, card_l, **TICK_LOSS_TOL):
+        i = int(np.argmax(np.abs(cpu_l - card_l)))
+        fail(f"bridge selftest: tick {i}'s loss is {cpu_l[i]} on the CPU and "
+             f"{card_l[i]} on the card, from the same learner state")
+    if not torch.equal(cpu.replay.obs, card.replay.obs.cpu()):
+        fail("bridge selftest: the CPU replay's rows differ from the card's")
+    steps = card_l != 0.0
+    if not steps.any():
+        fail("bridge selftest: no SGD step in the replay")
+    rel = np.abs(cpu_l - card_l)[steps] / np.abs(card_l)[steps]
+    return dict(ticks=len(order), sgd_steps=int(steps.sum()),
+                card_replay_actions_equal=True,
+                card_replay_losses_bit_equal=bool(
+                    np.array_equal(card_l, served_l)),
+                card_replay_vs_served_loss_max_abs_err=float(
+                    np.abs(card_l - served_l).max()),
+                cpu_actions_equal=True,
+                cpu_vs_card_loss_max_abs_err=float(
+                    np.abs(cpu_l - card_l).max()),
+                cpu_vs_card_loss_max_rel_err=float(rel.max()),
+                seconds=seconds)
+
+
+def bridge_phase(sk, _cuda, gpu: str, dev, data: AgentData) -> dict:
+    """The DCARL agent (``bridge/agent_session.py``) served over TCP
+    (``bridge/agent_server.py``, the port's msgpack codec) at the
+    example's widths:
+
+    0. a cold start: a throwaway training session's first tick timed (it
+       loads the CUDA modules), then 63 ticks more, the last 16 past its
+       first SGD steps under CUDA's sync debug mode;
+    1. the ported selftest, 400 ticks of the synthetic planner, against
+       a training session on the card: ticks/s, round-trip latency, one
+       ``sorted_moments`` launch (D = 21, 8 queries) a tick; then its
+       ticks again in its logged order on the card and, from the card's
+       learner state of each tick, on the CPU (:func:`training_replay`);
+    2. test mode on a full store (the agent's 2^17 rows): 4 concurrent
+       planners x 64 messages; the card's replies against a CPU session
+       (plain route) replaying the messages in the order the card
+       session took them, from the same start; a card replay of that
+       order times each launch with CUDA events; the tick's launch
+       against the plain version (counts exact, sums within rtol 1e-4 /
+       atol 1e-3) and again bit-equal; 32 ticks more under CUDA's sync
+       debug mode and ``torch.profiler`` (:func:`agent_tick_profile`).
+
+    The clients' fallback is -1, which no policy returns, and the served
+    policy records any exception: a sentinel reply, an exception, a tick
+    count other than the requests sent, a launch count other than the
+    ticks, or a training or test-mode tick that waits for the card other
+    than once (the reply's action) fails the phase."""
+    import threading
+
+    from dcarl_tpu_torch.bridge import AgentServer, PlannerClient
+    from dcarl_tpu_torch.bridge import agent_session as AS
+    from dcarl_tpu_torch.core import rls as RLS
+    from dcarl_tpu_torch.core import store as ST
+    from dcarl_tpu_torch.utils import nan_guard as NG
+
+    t_phase = time.perf_counter()
+
+    def launches(n_ticks: int, what: str) -> dict:
+        got = dict(_cuda.LAUNCHES)
+        if got != {"sorted_moments": n_ticks}:
+            fail(f"bridge {what}: kernel launches {got} != {n_ticks} ticks")
+        return got
+
+    def one_sync(syncs: dict, what: str) -> None:
+        if syncs["syncs_per_tick"] != 1:
+            fail(f"bridge {what}: {syncs['syncs_per_tick']} host syncs a "
+                 f"tick, at {syncs['sync_sites']}")
+
+    # 0. a cold start: a throwaway training session's first tick loads
+    # the CUDA modules of every op the tick runs, which can outlast the
+    # planner client's 2 s timeout (the first request then falls back to
+    # the rule); then ticks past its first SGD steps
+    warm = AS.AgentSession(seed=SEED + 2, is_training=True, device=dev)
+    warm_msgs = agent_traffic(np.random.default_rng(SEED + 63), data.anchors,
+                              64)
+    sync(dev)
+    t0 = time.perf_counter()
+    warm.decide(warm_msgs[0])
+    sync(dev)
+    first_tick_s = time.perf_counter() - t0
+    for m in warm_msgs[1:48]:
+        warm.decide(m)
+    if warm.replay_rows < warm.dcfg.batch_size:
+        fail("bridge warm-up: no SGD step in 48 ticks")
+    train_syncs = count_syncs(warm, warm_msgs[48:])
+    one_sync(train_syncs, "training tick")
+    del warm
+
+    # 1. the training selftest
+    sess = AS.AgentSession(seed=SEED, is_training=True, device=dev)
+    served_losses = recorded_losses(sess)
+    log, errors = [], []
+    _cuda.LAUNCHES.clear()
+    sync(dev)
+    t0 = time.perf_counter()
+    with AgentServer(guarded(sess.decide, log, errors)) as srv:
+        out = AS.selftest(sess, srv.address[1], n_ticks=SELFTEST_TICKS)
+    sync(dev)
+    self_s = time.perf_counter() - t0
+    if errors or sess.ticks != SELFTEST_TICKS or len(log) != SELFTEST_TICKS \
+            or -1 in out["actions"]:
+        fail(f"bridge selftest: {sess.ticks} ticks and {len(log)} replies "
+             f"for {SELFTEST_TICKS} requests, errors {errors[:3]}")
+    self_launches = launches(SELFTEST_TICKS, "selftest")
+    NG.assert_finite(sess.checkpoint_state(), "agent DQN state")
+    lat = np.asarray(out["latency_s"]) * 1e3
+    selftest = dict(
+        cold_first_tick_seconds=first_tick_s,
+        training_tick_syncs=train_syncs,
+        ticks=SELFTEST_TICKS, seconds=self_s,
+        ticks_per_s=SELFTEST_TICKS / self_s,
+        latency_ms_p50=float(np.percentile(lat, 50)),
+        latency_ms_p99=float(np.percentile(lat, 99)),
+        latency_ms_max=float(lat.max()), launches=self_launches,
+        store_rows=int(sess.store.size), replay_rows=sess.replay_rows,
+        frame=sess.frame, episodes=sess.episodes,
+        action_hist=np.bincount(out["actions"],
+                                minlength=AS.NUM_ACTIONS).tolist(),
+        nan_guard_finite=True)
+    del sess
+    selftest["replay"] = training_replay(
+        dev, [m for m, _ in log], [r for _, r in log], served_losses)
+
+    # 2. test mode on the full store
+    def fresh(device):
+        s = AS.AgentSession(seed=SEED + 1, is_training=False, device=device)
+        if s.store.keys.shape[0] != data.keys.shape[0]:
+            fail("bridge: the agent rows do not fill the session's store")
+        s.store = agent_store(data, torch.device(device))
+        return s
+
+    rng = np.random.default_rng(SEED + 62)
+    traffic = [agent_traffic(rng, data.anchors, AGENT_MESSAGES)
+               for _ in range(AGENT_CLIENTS)]
+    card = fresh(dev)
+    log, errors, replies, lat_ms = [], [], {}, {}
+
+    def planner(i):
+        c = PlannerClient(port=srv.address[1], timeout=60.0,
+                          fallback_action=-1)
+        replies[i], lat_ms[i] = [], []
+        for m in traffic[i]:
+            t1 = time.perf_counter()
+            replies[i].append(c.decide(m[:20], collision=m[20],
+                                       leave_mmap=m[21]))
+            lat_ms[i].append((time.perf_counter() - t1) * 1e3)
+        c.close()
+
+    _cuda.LAUNCHES.clear()
+    sync(dev)
+    t0 = time.perf_counter()
+    with AgentServer(guarded(card.decide, log, errors)) as srv:
+        threads = [threading.Thread(target=planner, args=(i,))
+                   for i in range(AGENT_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    sync(dev)
+    serve_s = time.perf_counter() - t0
+    n_req = AGENT_CLIENTS * AGENT_MESSAGES
+    sent = [a for i in range(AGENT_CLIENTS) for a in replies.get(i, [])]
+    if any(t.is_alive() for t in threads) or len(sent) != n_req \
+            or -1 in sent or errors or card.ticks != n_req \
+            or len(log) != n_req:
+        fail(f"bridge test mode: {card.ticks} ticks, {len(log)} logged and "
+             f"{len(sent)} replies ({sent.count(-1)} fallbacks) for {n_req} "
+             f"requests, errors {errors[:3]}")
+    serve_launches = launches(n_req, "test mode")
+    order = [m for m, _ in log]
+    want = [r for _, r in log]
+
+    cpu = fresh("cpu")
+    t0 = time.perf_counter()
+    got = [cpu.decide(m) for m in order]
+    cpu_s = time.perf_counter() - t0
+    if got != want:
+        i = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        fail(f"bridge test mode: the CPU replay decides {got[i]} where the "
+             f"card decided {want[i]} (message {i} in arrival order)")
+
+    again, record = fresh(dev), []
+    with timed_launches(sk, "launch_sorted", record,
+                        sorted_probe(sk, _cuda)):
+        sync(dev)
+        t0 = time.perf_counter()
+        got = [again.decide(m) for m in order]
+        sync(dev)
+        replay_s = time.perf_counter() - t0
+    if got != want:
+        fail("bridge test mode: the card replay differs from the served run")
+    summ = summarize(record)
+    summ["tick_profile"] = agent_tick_profile(again, order[:32])
+    one_sync(summ["tick_profile"], "test-mode tick")
+
+    # the tick's launch against the plain version, on the final store
+    obs = torch.tensor(order[-1][:20], dtype=torch.float32, device=dev)
+    keys = RLS.candidate_keys(obs[None], AS.NUM_ACTIONS).reshape(-1, 21)
+    valid = ST.store_valid(card.store)
+    ops, _ = sk.sorted_query_operands(card.store.keys, card.store.values,
+                                      valid, keys.contiguous(),
+                                      card.half_widths)
+    out = sk.sorted_moments(ops)
+    sync(dev)
+    err = compare(out, sk.sorted_moments_plain(ops), "agent_tick")
+    if not torch.equal(sk.sorted_moments(ops), out):
+        fail("agent tick: two sorted_moments launches differ")
+    kernel_ms = cuda_ms(lambda: sk.sorted_moments(ops))
+    plain_ms = cuda_ms(lambda: sk.sorted_moments_plain(ops))
+    wrapper_ms = cuda_ms(lambda: sk.box_query_moments_sorted(
+        card.store.keys, card.store.values, valid, keys, card.half_widths))
+    lat = np.concatenate([np.asarray(v) for v in lat_ms.values()])
+    emit("bridge", selftest=selftest,
+         test_mode=dict(
+             clients=AGENT_CLIENTS, messages_per_client=AGENT_MESSAGES,
+             requests=n_req, store_rows=int(card.store.size),
+             seconds=serve_s, ticks_per_s=n_req / serve_s,
+             latency_ms_p50=float(np.percentile(lat, 50)),
+             latency_ms_p99=float(np.percentile(lat, 99)),
+             launches=serve_launches,
+             gated_share=float(np.mean(np.asarray(want) > 0)),
+             action_hist=np.bincount(want, minlength=AS.NUM_ACTIONS).tolist(),
+             cpu_replay_equal=True, cpu_replay_seconds=cpu_s,
+             card_replay_ticks_per_s=n_req / replay_s),
+         tick_launch=dict(queries=int(keys.shape[0]), key_dim=21,
+                          rows=int(valid.sum()), max_abs_err=err,
+                          matches=int(out[:, 0].sum()), bit_equal_repeat=True,
+                          kernel_ms=kernel_ms, plain_ms=plain_ms,
+                          wrapper_ms=wrapper_ms, band_dim_w=float(ops.w0)),
+         **summ, seconds=time.perf_counter() - t_phase, gpu=gpu)
+    return dict(launches=serve_launches["sorted_moments"],
+                selftest_launches=self_launches["sorted_moments"],
+                max_abs_err=err, ms=summ["kernel_ms_mean"],
+                plain_ms=plain_ms, wrapper_ms=wrapper_ms,
+                bound_ms=summ["bound_ms_mean"], bound_by=summ["bound_by"])
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = None
     if argv:
         only = set(argv[1].split(",")) if len(argv) == 2 \
             and argv[0] == "--only" else None
-        if not only or not only <= {"lane", "field", "vec", "algos"}:
-            print("usage: chip_smoke.py [--only lane,field,algos,vec]",
-                  file=sys.stderr)
+        if not only or not only <= {"lane", "field", "vec", "algos", "host",
+                                    "bridge"}:
+            print("usage: chip_smoke.py [--only "
+                  "lane,field,algos,vec,host,bridge]", file=sys.stderr)
             return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2647,6 +3250,12 @@ def main(argv=None) -> int:
         states = algos_phase(gpu, dev) if "algos" in only else None
         if "vec" in only:
             vec_phase(gpu, dev, states)
+        if only & {"host", "bridge"}:
+            agent = agent_data(np.random.default_rng(SEED))
+            if "host" in only:
+                host_phase(gpu, dev, agent)
+            if "bridge" in only:
+                bridge_phase(store_kernels, _cuda, gpu, dev, agent)
         return 0
 
     env_cfg = EnvConfig()
@@ -3158,6 +3767,13 @@ def main(argv=None) -> int:
     # (no store kernel on this path)
     vec_phase(gpu, dev, algos_phase(gpu, dev))
 
+    # --- the host layer and the DCARL agent served over TCP: the C++ host
+    # library, then the agent tick through sorted_moments at D = 21
+    agent_rows = agent_data(np.random.default_rng(SEED))
+    host_phase(gpu, dev, agent_rows)
+    agent = bridge_phase(sk, _cuda, gpu, dev, agent_rows)
+    note_err("sorted_moments", agent["max_abs_err"])
+
     emit("done", seconds=time.perf_counter() - t_start,
          gated_on_trainer_store_gate_share=ts_gate)
     print(json.dumps({"kernels": [
@@ -3183,7 +3799,17 @@ def main(argv=None) -> int:
          "lane_gate_plain_ms": lane["plain_ms"],
          "lane_gate_plain_queries": lane["plain_queries"],
          "lane_gate_bound_ms": lane["bound_ms"],
-         "lane_gate_bound_by": lane["bound_by"]},
+         "lane_gate_bound_by": lane["bound_by"],
+         # the agent tick's launch (8 queries, D = 21, 2^17 rows), its
+         # own path: the served test-mode run's launches
+         "agent_tick_launches": agent["launches"],
+         "agent_selftest_launches": agent["selftest_launches"],
+         "agent_tick_ms": agent["ms"],
+         "agent_tick_wrapper_ms": agent["wrapper_ms"],
+         "agent_tick_max_abs_err": agent["max_abs_err"],
+         "agent_tick_plain_ms": agent["plain_ms"],
+         "agent_tick_bound_ms": agent["bound_ms"],
+         "agent_tick_bound_by": agent["bound_by"]},
         {"name": "box_moments", "route": "cuda",
          "source": "dcarl_tpu_torch/csrc/box_moments.cu",
          "replaces": "dcarl_tpu/ops/pallas_store.py:32",

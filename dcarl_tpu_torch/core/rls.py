@@ -199,7 +199,10 @@ def traj_buffer_push(buf: TrajectoryBuffer, obs: torch.Tensor,
         # TF32 switches say
         backfill_values = (disc * new_reward[None, :]).sum(1)
     else:
-        terminal_reward = new_reward[length - 1]
+        # a gather, not ``new_reward[length - 1]``: indexing with a device
+        # scalar reads it back to the host
+        terminal_reward = new_reward.gather(
+            0, (length - 1).reshape(1).to(torch.int64))[0]
         exponent = torch.clamp(length - 1 - idx, min=0).to(dt)
         backfill_values = terminal_reward * cfg.gamma ** exponent
     backfill_valid = done & (idx < length)

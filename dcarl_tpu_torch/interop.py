@@ -5,7 +5,8 @@ reference-path tables; the trainers add trajectory buffers, act-hold
 segments, a trust set, a replay buffer and the learner (a flax
 Q-network and its optax Adam state).  The lane-level field stack adds
 the multilane env's state (its reset draws included), the multilane
-world model and the static local map.
+world model and the static local map; the agent session
+(``bridge/agent_session.py``) an n-step trajectory window.
 These helpers take that state as numpy arrays (``np.asarray`` of each
 JAX array, or nested mappings of them; this module never imports JAX)
 and return the port's tensors on a given device, or load them into the
@@ -21,6 +22,7 @@ import torch
 from torch import nn
 
 from dcarl_tpu_torch.cognition.locator import StaticLocalMap
+from dcarl_tpu_torch.core.rls import TrajectoryBuffer
 from dcarl_tpu_torch.core.store import ConfidenceStore
 from dcarl_tpu_torch.device import resolve_device
 from dcarl_tpu_torch.env import driving_env as de
@@ -161,6 +163,16 @@ def replay_from_numpy(src: Any, device) -> Replay:
         name: _to(rp[name], device, torch.int32
                   if name in ("action", "size", "head") else torch.float32)
         for name in Replay._fields})
+
+
+def traj_buffer_from_numpy(src: Any, device) -> TrajectoryBuffer:
+    """One env's n-step window (``dcarl_tpu.core.rls.TrajectoryBuffer``):
+    float32 obs, action and reward rows, the int32 length."""
+    f = _fields(src)
+    return TrajectoryBuffer(**{
+        name: _to(f[name], device, torch.int32 if name == "length"
+                  else torch.float32)
+        for name in TrajectoryBuffer._fields})
 
 
 def trustset_from_numpy(src: Any, device):

@@ -1,6 +1,9 @@
 """The PyTorch port stands alone: no module of ``dcarl_tpu_torch``, not
 ``chip_smoke.py`` and not the rank programs that spawned ranks import
-(``tests/torch_rank_programs.py``) imports JAX or the JAX package."""
+(``tests/torch_rank_programs.py``) imports JAX, the JAX package, its
+``examples/`` or ``msgpack`` (the port speaks the planner protocol with
+its own codec); the bridge and the utilities import without ``msgpack``
+and ``matplotlib``."""
 
 import ast
 import subprocess
@@ -10,7 +13,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "dcarl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "dcarl_tpu",
+             "examples", "msgpack")
 PORT_FILES = sorted((ROOT / "dcarl_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_rank_programs.py"]
 
@@ -81,14 +85,47 @@ def test_port_import_pulls_in_no_jax():
         "import dcarl_tpu_torch.control.calibration\n"
         "import dcarl_tpu_torch.utils.nan_guard\n"
         "import dcarl_tpu_torch.utils.profiling\n"
+        "import dcarl_tpu_torch.utils\n"
+        "import dcarl_tpu_torch.utils.native\n"
+        "import dcarl_tpu_torch.driver\n"
+        "import dcarl_tpu_torch.bridge\n"
+        "import dcarl_tpu_torch.bridge.agent_session\n"
         "import dcarl_tpu_torch.algos\n"
         "from dcarl_tpu_torch.algos import (a2c, acer, acktr, common, ddpg,\n"
         "    gail, her, nets, ppo, sac, td3, trpo)\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_rank_programs\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'dcarl_tpu')]\n"
+        "       if m.split('.')[0] in ('jax', 'dcarl_tpu', 'msgpack')]\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_bridge_and_utils_import_without_msgpack_or_matplotlib():
+    code = (
+        "import sys\n"
+        "for name in ('msgpack', 'matplotlib', 'matplotlib.pyplot'):\n"
+        "    sys.modules[name] = None\n"
+        "import dcarl_tpu_torch.bridge, dcarl_tpu_torch.utils\n"
+        "import dcarl_tpu_torch.bridge.agent_session\n"
+        "from dcarl_tpu_torch.bridge import wire\n"
+        "u = wire.Unpacker()\n"
+        "u.feed(wire.packb([1.5, 2, None]))\n"
+        "assert list(u) == [[1.5, 2, None]]\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each module of ``dcarl_tpu`` has one of the same path in the port,
+    except ``ops/pallas_store.py``, whose kernels live in
+    ``ops/store_kernels.py`` and ``csrc/``."""
+    def modules(pkg):
+        return {p.relative_to(ROOT / pkg).as_posix()
+                for p in (ROOT / pkg).rglob("*.py")}
+
+    missing = modules("dcarl_tpu") - modules("dcarl_tpu_torch")
+    assert missing == {"ops/pallas_store.py"}
