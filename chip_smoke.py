@@ -183,6 +183,21 @@ closed-loop CLIs (``examples/run_improvement.py``,
                 back to -1 and the served policy records any exception: a
                 fallback, an exception or a tick count other than the
                 requests fails the phase
+  entry         every entry point of the port through its main(argv), in
+                this process: the benchmark (dcarl_tpu_torch.bench) at
+                the card's widths, its JSON line printed on a line of its
+                own (both oracle checks through the kernels, every rate
+                finite and positive); examples.bench_store at 2^16 and
+                2^17 rows x 4,096 queries (16 calls a timed run); world-
+                size-1 bench_scaling; profile_step at 1,024 x 50; the
+                store-scale sweep cut to 2^18, 2^20, 2^21 rows (grouped)
+                and 2^18 (gated), parity at every size; run_improvement,
+                run_vehicle_life and train_multihost (one NCCL rank) at
+                --smoke; run_rollout at 8 x 1,200; the golden demos and
+                the field replay on inputs generated in a temp dir, the
+                card's answers against the CPU's.  Each call's kernel
+                launches are counted; a call that should reach a kernel
+                and did not fails
 
 Each rate comes from a run without probes; a replay of the same run then
 times each launch and reports its plan (kept and window sub-slices per
@@ -200,6 +215,7 @@ without a CUDA device or without the package beside it.
     python3 chip_smoke.py --only lane,field   # build, then those phases
     python3 chip_smoke.py --only algos,vec
     python3 chip_smoke.py --only bridge,host  # the host layer and the agent
+    python3 chip_smoke.py --only entry        # the port's entry points
 """
 
 from __future__ import annotations
@@ -208,11 +224,13 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -541,15 +559,6 @@ def brute_work(n_rows: int, n_q: int, d: int, matches: float):
     """(bytes, ops) of the brute kernel: every pair is tested."""
     return (4 * ((d + 2) * n_rows + (d + 3) * n_q + d),
             2.0 * d * n_rows * n_q + 3.0 * matches)
-
-
-def snapshot(state):
-    """A copy of a trainer state (every tensor cloned; host flags kept)."""
-    if isinstance(state, torch.Tensor):
-        return state.clone()
-    if isinstance(state, tuple):
-        return type(state)(*(snapshot(x) for x in state))
-    return state
 
 
 @contextlib.contextmanager
@@ -960,6 +969,7 @@ def trustset_phase(sk, _cuda, gpu: str) -> tuple:
     from dcarl_tpu_torch.models import segment as SEG
     from dcarl_tpu_torch.models import trustset as TS
     from dcarl_tpu_torch.planning import fast_rollout as fr
+    from dcarl_tpu_torch.train_fast import snapshot
 
     dev = torch.device("cuda")
     envs, steps, snap_at, e2e_steps = 64, 1000, 600, 20
@@ -3187,6 +3197,226 @@ def bridge_phase(sk, _cuda, gpu: str, dev, data: AgentData) -> dict:
                 bound_ms=summ["bound_ms_mean"], bound_by=summ["bound_by"])
 
 
+ENTRY_SCALE_ARGS = ["--sizes", str(1 << 18), str(1 << 20), str(1 << 21),
+                    "--gated-sizes", str(1 << 18)]   # cut from 2^23 / 2^22
+ENTRY_STORE_INNER = 16      # bench_store's calls a timed run (its CLI: 64)
+
+
+def entry_call(_cuda, module: str, argv: list) -> tuple:
+    """``dcarl_tpu_torch.<module>.main(argv)`` in this process: (its
+    printed lines, seconds, kernel launches).  A non-zero exit fails."""
+    import importlib
+    import io
+
+    mod = importlib.import_module("dcarl_tpu_torch." + module)
+    out = io.StringIO()
+    _cuda.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"entry {module}: exit code {rc}")
+    return out.getvalue().splitlines(), seconds, dict(_cuda.LAUNCHES)
+
+
+def entry_inputs(root: str) -> str:
+    """The golden demos' datasets (``Simulation_testing/``) and a field-log
+    scenario under ``root``, generated in the reference's layouts: the
+    script reads no file outside its checkout.  Returns the scenario."""
+    rng = np.random.default_rng(SEED)
+    for name, states, rows, files in (
+            ("Simulation_1", 1, 20000, ("data_carla", "action_value_carla")),
+            ("Simulation_2", 20, 25000, ("data", "action_value"))):
+        d = os.path.join(root, "Simulation_testing", name)
+        os.makedirs(d)
+        truth = rng.uniform(-50.0, 100.0, (states, 11))
+        scalar = rng.uniform(0.0, 1.0, states)
+        idx = np.clip(np.floor(rng.normal(3.0, 1.0, rows) / 6.0 * states),
+                      0, states - 1).astype(np.int64)
+        act = rng.integers(0, 11, rows)
+        data = np.stack([idx, scalar[idx], act,
+                         truth[idx, act] + rng.normal(0.0, 50.0, rows)], 1)
+        np.save(os.path.join(d, files[0] + ".npy"), data)
+        np.save(os.path.join(d, files[1] + ".npy"), truth)
+    # 400 ticks at 20 Hz along a gentle curve, six objects a tick in both
+    # lanes, ahead and behind
+    scen = os.path.join(root, "Field_testing", "Scenario1")
+    os.makedirs(scen)
+    n = 400
+    t = 1000.0 + np.arange(n) * 0.05
+    x = np.linspace(0.0, 60.0, n)
+    y = 0.002 * x ** 2
+    zeros = np.zeros(n)
+    np.savetxt(os.path.join(scen, "control.txt"),
+               np.c_[t, np.full(n, 5.0), np.full(n, 100.0)])
+    np.savetxt(os.path.join(scen, "automode.txt"), np.c_[t, np.ones(n)])
+    np.savetxt(os.path.join(scen, "traffic.txt"),
+               np.c_[t, zeros, zeros, x, y, zeros, zeros, zeros])
+    np.savetxt(os.path.join(scen, "decision.txt"),
+               np.c_[t, np.ones(n), zeros, x, y])
+    objs = [np.c_[t, x + dx, y + dy, np.full(n, v), zeros]
+            for dx, dy, v in ((12.0, 0.0, 4.0), (-8.0, 0.0, 6.0),
+                              (20.0, 3.5, 5.0), (-15.0, 3.5, 3.0),
+                              (6.0, 3.4, 2.0), (40.0, 0.2, 0.0))]
+    np.savetxt(os.path.join(scen, "surrounding_obj.txt"),
+               np.concatenate(objs)[np.argsort(np.tile(t, len(objs)),
+                                               kind="stable")])
+    return scen
+
+
+def same_printout(card: list, cpu: list, rtol: float = 1e-10) -> bool:
+    """The same lines but for the numbers in them: integers equal, other
+    numbers within ``rtol`` (float64 sums in another order)."""
+    num = re.compile(r"-?\d+(?:\.\d*)?(?:[eE][-+]?\d+)?")
+    if len(card) != len(cpu):
+        return False
+    for a, b in zip(card, cpu):
+        if num.sub("#", a) != num.sub("#", b):
+            return False
+        for x, y in zip(num.findall(a), num.findall(b)):
+            if x.lstrip("-").isdigit() and x != y:
+                return False
+            if not math.isclose(float(x), float(y), rel_tol=rtol):
+                return False
+    return True
+
+
+def entry_phase(_cuda, gpu: str, dev) -> dict:
+    """Each entry point of the port through its ``main``, on the card, at
+    the widths listed in the module docstring; outputs into a temp dir.
+    Returns kernel -> launches over the phase's calls."""
+    import socket
+
+    import torch.distributed as dist
+
+    from dcarl_tpu_torch.examples import run_field_replay
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    t_phase = time.perf_counter()
+    seconds, launches, by_call = {}, Counter(), {}
+
+    def call(module, argv, kernels=()):
+        lines, sec, ln = entry_call(_cuda, module, argv)
+        name = module.split(".")[-1]
+        seconds[name] = seconds.get(name, 0.0) + sec
+        launches.update(ln)
+        by_call.setdefault(name, Counter()).update(ln)
+        missing = [k for k in kernels if not ln.get(k)]
+        if missing:
+            fail(f"entry {module}: no {missing} launch ({ln})")
+        return lines
+
+    # the benchmark at the card's widths: its JSON line on a line of its own
+    bench = json.loads(call("bench", [], ("sorted_moments",
+                                          "peraction_moments"))[-1])
+    print(json.dumps(bench), flush=True)
+    rates = ("value", "confidence_evals_per_s", "train_env_steps_per_s",
+             "gated_env_steps_per_s")
+    if not bench["kernel_parity_checked"] or not all(
+            math.isfinite(bench[k]) and bench[k] > 0 for k in rates):
+        fail(f"entry bench: {bench}")
+
+    # the store microbenchmark (its sorted-vs-oracle and brute-vs-sorted
+    # checks raise inside), world-size-1 scaling, the component profile
+    store = call("examples.bench_store",
+                 ["--inner", str(ENTRY_STORE_INNER)],
+                 ("sorted_moments", "box_moments"))
+    if len(store) != 4:
+        fail(f"entry bench_store: {store}")
+    scaling = json.loads(call("examples.bench_scaling", [])[-1])
+    if scaling["devices"] != 1 or not scaling["steps_per_s_1dev"] > 0:
+        fail(f"entry bench_scaling: {scaling}")
+    profile = call("examples.profile_step", ["1024", "50"])
+    if len(profile) != 6 or not all(
+            float(r[28:].split()[0]) > 0 for r in profile[1:]):
+        fail(f"entry profile_step: {profile}")
+
+    # the store-scale sweep, cut (parity at every size raises inside)
+    scale_out = os.path.join(tmp, "STORE_SCALE.json")
+    call("tools.bench_store_scale", ENTRY_SCALE_ARGS + ["--out", scale_out],
+         ("sorted_moments", "peraction_moments"))
+    with open(scale_out) as f:
+        scale = json.load(f)
+    if not all(r["parity_checked"] for r in scale["kernel"] + scale["gated"]):
+        fail(f"entry bench_store_scale: {scale}")
+
+    # the closed-loop CLIs at their --smoke widths, on the card
+    imp = json.loads(call("examples.run_improvement",
+                          ["--smoke", "--out", os.path.join(tmp, "IMP")],
+                          ("sorted_moments", "peraction_moments"))[0])
+    if not imp["store_rows"] > 0 or not os.path.isfile(
+            os.path.join(tmp, "IMP.json")):
+        fail(f"entry run_improvement: {imp}")
+    life = json.loads("\n".join(call("examples.run_vehicle_life",
+                                     ["--smoke"], ("peraction_moments",))))
+    if len(life["checkpoints"]) != 3 or not all(
+            c["device_bitwise_full_vs_masked"] for c in life["checkpoints"]) \
+            or not life["sustained_env_steps_per_s"] > 0:
+        fail(f"entry run_vehicle_life: {life}")
+
+    # the multi-process launcher as one NCCL rank
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"DCARL_NUM_PROCESSES": "1", "DCARL_PROCESS_ID": "0",
+           "DCARL_COORDINATOR": f"localhost:{port}"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mh = [json.loads(x) for x in call("examples.train_multihost",
+                                          ["--smoke"], ("sorted_moments",))]
+        backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if [x["step"] for x in mh] != [4, 8] or backend != "nccl" or not all(
+            math.isfinite(x["loss"]) for x in mh):
+        fail(f"entry train_multihost: {backend} {mh}")
+
+    rollout = call("examples.run_rollout", ["--envs", "8", "--steps", "1200"])
+    n_ep = int(rollout[1].split(",")[0].split(":")[1])
+    if n_ep <= 0:
+        fail(f"entry run_rollout: {rollout}")
+
+    # the golden demos and the field replay on generated inputs; the
+    # card's answers against the CPU's
+    scen = entry_inputs(tmp)
+    golden = {}
+    for name in ("run_simulation1", "run_simulation2"):
+        card = call("examples." + name, ["--root", tmp])
+        cpu = call("examples." + name, ["--root", tmp, "--device", "cpu"])
+        if not same_printout(card, cpu):
+            fail(f"entry {name}: the card printed {card}, the CPU {cpu}")
+        golden[name] = card[-1]
+    replay = call("examples.run_field_replay", ["--scenario", scen])
+    frames = run_field_replay.build_frames(scen)
+    on_card = run_field_replay.decide_all(frames, dev)
+    on_cpu = run_field_replay.decide_all(frames, torch.device("cpu"))
+    if not torch.equal(on_card[0].cpu(), on_cpu[0]) or not all(
+            torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-4)
+            for a, b in zip(on_card[1:], on_cpu[1:])):
+        fail("entry run_field_replay: the card's decisions differ from "
+             "the CPU's")
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit("entry", seconds=seconds, launches=launches, launches_by_call=by_call,
+         phase_seconds=time.perf_counter() - t_phase,
+         bench_store=store, bench_scaling=scaling, profile_step=profile,
+         store_scale=scale, improvement=imp,
+         vehicle_life={k: v for k, v in life.items() if k != "checkpoints"},
+         train_multihost=mh[-1], rollout=rollout[:2], golden=golden,
+         field_replay=replay[1:], ticks=int(frames["t"].shape[0]), gpu=gpu)
+    return launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = None
@@ -3194,9 +3424,9 @@ def main(argv=None) -> int:
         only = set(argv[1].split(",")) if len(argv) == 2 \
             and argv[0] == "--only" else None
         if not only or not only <= {"lane", "field", "vec", "algos", "host",
-                                    "bridge"}:
+                                    "bridge", "entry"}:
             print("usage: chip_smoke.py [--only "
-                  "lane,field,algos,vec,host,bridge]", file=sys.stderr)
+                  "lane,field,algos,vec,host,bridge,entry]", file=sys.stderr)
             return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -3210,13 +3440,15 @@ def main(argv=None) -> int:
     sys.path.insert(0, here)
 
     from dcarl_tpu_torch import disable_tf32
+    from dcarl_tpu_torch.bench import (FILL_SEED, trainer_store,
+                                       trainer_store_fill)
     from dcarl_tpu_torch.config import (DCARLConfig, EnvConfig,
                                         driving_store_config)
     from dcarl_tpu_torch.env.driving_env import in_state_indices
     from dcarl_tpu_torch.env.scenario import t_intersection
     from dcarl_tpu_torch.ops import _cuda, store_kernels
     from dcarl_tpu_torch.planning import fast_rollout as fr
-    from dcarl_tpu_torch.train_fast import make_trainer_fast
+    from dcarl_tpu_torch.train_fast import make_trainer_fast, snapshot
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -3256,6 +3488,8 @@ def main(argv=None) -> int:
                 host_phase(gpu, dev, agent)
             if "bridge" in only:
                 bridge_phase(store_kernels, _cuda, gpu, dev, agent)
+        if "entry" in only:
+            entry_phase(_cuda, gpu, dev)
         return 0
 
     env_cfg = EnvConfig()
@@ -3628,17 +3862,14 @@ def main(argv=None) -> int:
 
     # --- the gated driver on a trainer-built store (bench.py:169-210)
     fill_tb, fill_steps, fill_cap = 16384, 300, 1 << 18
-    init_f, _, learner_f, factory_f = make_trainer_fast(
-        dcfg, batch_per_device=fill_tb, store_capacity_per_device=fill_cap,
-        replay_capacity_per_device=1 << 14, backfill_budget_per_step=4096,
-        use_kernel=True)
-    run_fill = factory_f(fill_steps)
+    init_f, learner_f, run_fill = trainer_store_fill(fill_cap, fill_tb,
+                                                     fill_steps, dev, scfg)
     fill_learner = learner_f.state_dict()
     _cuda.LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st_f, ms_f = run_fill(init_f(SEED + 7),
-                          torch.Generator(device=dev).manual_seed(SEED + 8))
+    st_f, ms_f = run_fill(init_f(FILL_SEED), torch.Generator(
+        device=dev).manual_seed(FILL_SEED + 1))
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
     fill_launches = dict(_cuda.LAUNCHES)
@@ -3649,14 +3880,13 @@ def main(argv=None) -> int:
     with timed_launches(sk, "launch_sorted", fill_record, sorted_probe(sk, _cuda)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_fill(init_f(SEED + 7),
-                 torch.Generator(device=dev).manual_seed(SEED + 8))
+        run_fill(init_f(FILL_SEED),
+                 torch.Generator(device=dev).manual_seed(FILL_SEED + 1))
         torch.cuda.synchronize()
         fill_replay_s = time.perf_counter() - t0
     fill_summ = summarize(fill_record)
     f_rows = int(st_f.store_size[0])
-    f_keys, f_vals = st_f.store_keys[0], st_f.store_values[0]
-    f_valid = torch.arange(fill_cap, device=dev) < f_rows
+    f_keys, f_vals, f_valid = trainer_store(st_f, fill_cap)
     n_unique_f = torch.unique(f_keys[f_valid], dim=0).shape[0]
     emit("trainer_store_fill", envs=fill_tb, steps=fill_steps,
          store_rows=f_rows, unique_rows=n_unique_f, seconds=fill_s,
@@ -3690,7 +3920,7 @@ def main(argv=None) -> int:
          deterministic=True,
          warp_row_empty_share=warp_empty_share(
              sorted_mask(ops), sk.sorted_prune_keep(ops), ops.valid != 0))
-    del st_f, init_f, factory_f, run_fill, ops, got, ref
+    del st_f, init_f, run_fill, ops, got, ref
     torch.cuda.empty_cache()
     ts_launches, ts_summ, ts_gate = gated_path(
         "gated_on_trainer_store", f_keys, f_vals, f_valid, SEED + 9)
@@ -3774,6 +4004,10 @@ def main(argv=None) -> int:
     agent = bridge_phase(sk, _cuda, gpu, dev, agent_rows)
     note_err("sorted_moments", agent["max_abs_err"])
 
+    # --- every entry point of the port through its main: the benchmark
+    # at the card's widths, the harnesses and the example CLIs
+    entry = entry_phase(_cuda, gpu, dev)
+
     emit("done", seconds=time.perf_counter() - t_start,
          gated_on_trainer_store_gate_share=ts_gate)
     print(json.dumps({"kernels": [
@@ -3784,7 +4018,8 @@ def main(argv=None) -> int:
          "max_abs_err": max_err["peraction_moments"],
          "ms": pa_summ["kernel_ms_mean"], "plain_ms": pa_plain_ms,
          "bound_ms": pa_summ["bound_ms_mean"],
-         "bound_by": pa_summ["bound_by"], "library_ms": None},
+         "bound_by": pa_summ["bound_by"], "library_ms": None,
+         "entry_launches": entry.get("peraction_moments", 0)},
         {"name": "sorted_moments", "route": "cuda",
          "source": "dcarl_tpu_torch/csrc/sorted_moments.cu",
          "replaces": "dcarl_tpu/ops/pallas_store.py:71",
@@ -3809,7 +4044,9 @@ def main(argv=None) -> int:
          "agent_tick_max_abs_err": agent["max_abs_err"],
          "agent_tick_plain_ms": agent["plain_ms"],
          "agent_tick_bound_ms": agent["bound_ms"],
-         "agent_tick_bound_by": agent["bound_by"]},
+         "agent_tick_bound_by": agent["bound_by"],
+         # the entry points' calls (bench, harnesses, CLIs)
+         "entry_launches": entry.get("sorted_moments", 0)},
         {"name": "box_moments", "route": "cuda",
          "source": "dcarl_tpu_torch/csrc/box_moments.cu",
          "replaces": "dcarl_tpu/ops/pallas_store.py:32",
@@ -3818,7 +4055,8 @@ def main(argv=None) -> int:
          + pa_launches.get("box_moments", 0),
          "max_abs_err": max_err["box_moments"],
          "ms": bx_ms, "plain_ms": bx_plain_ms, "bound_ms": bx_bound[0],
-         "bound_by": bx_bound[1], "library_ms": None},
+         "bound_by": bx_bound[1], "library_ms": None,
+         "entry_launches": entry.get("box_moments", 0)},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

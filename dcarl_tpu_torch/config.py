@@ -236,3 +236,6 @@ class DCARLConfig:
     env: EnvConfig = EnvConfig()
     dqn: DQNConfig = DQNConfig()
     mesh: MeshConfig = MeshConfig()
+
+
+DEFAULT = DCARLConfig()

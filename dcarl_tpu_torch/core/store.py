@@ -38,6 +38,13 @@ FIELD_HALF_WIDTHS = (
     0.1,
 )
 
+# Half-widths of the 13-D lane_models variant (12-D obs + action),
+# lane_models/src/deepq/RLS.py:53.
+LANE_HALF_WIDTHS = (
+    2.0, 5.0, 10.0, 1.0, 6.0, 10.0, 1.0, 6.0, 10.0, 6.0, 10.0, 6.0,
+    0.1,
+)
+
 # Key of rows that must match no query (far outside any real state).
 SENTINEL_KEY = 1.0e9
 

@@ -7,17 +7,21 @@ Row format of the data arrays: [state_idx, state_scalar, action_idx, value]
 (Data_Sampling/data_sampling.py:30-67).
 
 The files are looked up under ``root``: the argument, else the
-``DCARL_REFERENCE_ROOT`` environment variable, else a ``reference``
-directory at this repository's root.
+``DCARL_REFERENCE_ROOT`` environment variable (read at each call), else
+the JAX package's default root.
 """
 
 from __future__ import annotations
 
 import os
-from pathlib import Path
 from typing import NamedTuple, Optional
 
 import numpy as np
+
+# The JAX package's default root (dcarl_tpu/data/datasets.py:21).
+_FALLBACK_ROOT = os.path.join(os.sep, "root", "reference")
+# As JAX has it: the variable as it was at import.
+DEFAULT_ROOT = os.environ.get("DCARL_REFERENCE_ROOT", _FALLBACK_ROOT)
 
 
 class DemoDataset(NamedTuple):
@@ -29,8 +33,8 @@ class DemoDataset(NamedTuple):
 
 
 def default_root() -> str:
-    return os.environ.get("DCARL_REFERENCE_ROOT", str(
-        Path(__file__).resolve().parents[2] / "reference"))
+    """The variable as it is now, else the JAX package's default."""
+    return os.environ.get("DCARL_REFERENCE_ROOT", _FALLBACK_ROOT)
 
 
 def _sim_dir(name: str, root: Optional[str]) -> str:

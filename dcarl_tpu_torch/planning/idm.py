@@ -23,6 +23,7 @@ T_HEADWAY = 3.6
 G0 = 7.0 + 12.0
 A_MAX = 2.73
 B_COMF = 1.65 + 5.0
+DELTA = 4          # the exponent pow4 writes out
 DECISION_DT = 0.2
 
 

@@ -123,6 +123,16 @@ def rank_seed(seed: int, rank: int) -> int:
     return (seed + rank * 0x9E3779B97F4A7C15) % (1 << 63)
 
 
+def snapshot(state):
+    """A copy of a trainer state (every tensor cloned; host flags kept):
+    a run from it leaves the original as it was."""
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    if isinstance(state, tuple):
+        return type(state)(*(snapshot(x) for x in state))
+    return state
+
+
 def _compact(rows: torch.Tensor, dest: torch.Tensor, k: int) -> torch.Tensor:
     """[k, ...] rows at their ``dest`` positions, zeros elsewhere; a dest
     of ``k`` drops its row."""

@@ -315,3 +315,32 @@ def test_dataset_loader_on_a_small_tree(tmp_path):
     np.testing.assert_array_equal(s2.data, d2)
     np.testing.assert_array_equal(s2.action_values, av2)
     assert (s2.action_num, s2.stream_len, s2.states) == (11, 20000, None)
+
+
+@pytest.mark.parametrize("env_root", [False, True],
+                         ids=["variable_unset", "variable_set"])
+def test_default_dataset_root_matches_jax(env_root, tmp_path, monkeypatch):
+    """F2: with no ``root`` the port looks where JAX looks, with
+    ``DCARL_REFERENCE_ROOT`` unset and set.  JAX reads the variable at
+    import, so its module is reloaded under the patched environment (and
+    once more after, under the restored one)."""
+    import importlib
+
+    from dcarl_tpu.data import datasets as jdatasets
+
+    if env_root:
+        monkeypatch.setenv("DCARL_REFERENCE_ROOT", str(tmp_path))
+    else:
+        monkeypatch.delenv("DCARL_REFERENCE_ROOT", raising=False)
+    try:
+        importlib.reload(jdatasets)
+        for name in ("Simulation_1", "Simulation_2"):
+            assert datasets._sim_dir(name, None) == jdatasets._sim_dir(name)
+        assert datasets.default_root() == jdatasets.DEFAULT_ROOT
+        if env_root:
+            assert datasets.default_root() == str(tmp_path)
+        assert datasets.reference_available() \
+            == jdatasets.reference_available()
+    finally:
+        monkeypatch.undo()
+        importlib.reload(jdatasets)

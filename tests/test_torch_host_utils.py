@@ -19,6 +19,7 @@ from dcarl_tpu_torch.utils import field_analysis as PFA
 from dcarl_tpu_torch.utils import logging as PL
 from dcarl_tpu_torch.utils import monitor as PM
 from dcarl_tpu_torch.utils import visualize as PV
+from torch_scenarios import synthetic_scenario
 
 
 def _snapshot(statuses: dict) -> dict:
@@ -88,25 +89,6 @@ def test_monitor_matches_jax(case):
 
 # --------------------------------------------------------- field analysis
 
-def _synthetic_scenario(path):
-    os.makedirs(path, exist_ok=True)
-    t = 1000.0 + np.arange(200) * 0.05
-    np.savetxt(os.path.join(path, "control.txt"),
-               np.c_[t, np.full_like(t, 5.0),
-                     np.where(np.arange(200) % 2, 65536.0 - 100.0, 100.0)])
-    np.savetxt(os.path.join(path, "automode.txt"),
-               np.c_[t, np.where(np.arange(200) < 50, 1.0, 2.0)])
-    x = np.linspace(0, 30, 200)
-    np.savetxt(os.path.join(path, "traffic.txt"),
-               np.c_[t, np.zeros((200, 2)), x, np.zeros(200),
-                     np.zeros((200, 3))])
-    np.savetxt(os.path.join(path, "surrounding_obj.txt"),
-               np.c_[t, x + 10, np.ones(200), np.zeros((200, 2))])
-    np.savetxt(os.path.join(path, "decision.txt"),
-               np.c_[t, np.ones(200), np.zeros(200), x, np.zeros(200)])
-    return path
-
-
 def _assert_same_analysis(got: dict, want: dict):
     assert got.keys() == want.keys()
     for k in want:
@@ -119,7 +101,7 @@ def _assert_same_analysis(got: dict, want: dict):
 
 @pytest.mark.parametrize("window", [None, (1002.0, 1008.0)])
 def test_field_analysis_synthetic_matches_jax(tmp_path, window):
-    d = _synthetic_scenario(str(tmp_path / "scen"))
+    d = synthetic_scenario(str(tmp_path / "scen"))
     tmin, tmax = window or (None, None)
     a = PFA.analyze_scenario(d, tmin, tmax)
     _assert_same_analysis(a, JFA.analyze_scenario(d, tmin, tmax))

@@ -282,3 +282,22 @@ def ppo_mesh_checks(mesh, p=None):
         torch.equal(same.params[k], one.params[k]) for k in one.params),
         "same_draws": {k: _np(v) for k, v in same.params.items()},
         "own_draws": {k: _np(v) for k, v in own.params.items()}}
+
+
+def entry_point_checks(mesh, p=None):
+    """The multi-process entry points on this rank, as a launcher's
+    every rank runs them: what each printed (rank 0 only prints)."""
+    import contextlib
+    import io
+
+    from dcarl_tpu_torch.examples import bench_scaling, train_multihost
+
+    printed = []
+    for mod, argv in ((bench_scaling, ["--batch-per-device", "4",
+                                       "--steps", "3"]),
+                      (train_multihost, ["--smoke"])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert mod.main(argv + ["--device", str(mesh.device)]) == 0
+        printed.append(out.getvalue().splitlines())
+    return printed
