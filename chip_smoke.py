@@ -16,26 +16,28 @@ closed-loop CLIs (``examples/run_improvement.py``,
                 (random).  Counts exact, sums within rtol 1e-4 / atol 1e-3
   store fill    the rule driver at 16,384 envs x 16 ticks makes a
                 2^18-row store from its observations
-  gated path    gated driver, 65,536 envs x 50 ticks, against that store:
-                one peraction_moments launch per tick, the gate fires; a
-                replay times each launch with CUDA events
+  gated path    gated driver, 65,536 envs x 50 ticks, against that store,
+                on the compiled route (one captured CUDA graph of a tick,
+                replayed): one peraction_moments launch per tick, the gate
+                fires; the same run on the eager loop, bit-equal, times
+                each launch with CUDA events
   gated e2e     256 envs x 10 ticks, kernel route == brute route
   train path    the lane-major trainer at 32,768 envs (store and replay
-                2^16, backfill budget 8,192, kernel route): 20 warm-up
-                steps, then 20 timed steps from a snapshot; one
-                sorted_moments launch per step; a replay from the same
-                snapshot times each launch
+                2^16, backfill budget 8,192, kernel route), compiled: 20
+                warm-up steps, then 20 timed steps from a snapshot; one
+                sorted_moments launch per step; the eager loop from the
+                same snapshot, bit-equal, times each launch
   train kernels sorted_moments (grouped) and box_moments against their
                 plain versions on the trainer-built store, 4,096 queries
   train e2e     256 envs x 40 steps in 20-step episodes, kernel route ==
                 brute route from the same state with the same draws: store
                 and integer outputs
   trainer store the trainer at 16,384 envs x 300 steps fills a 2^18-row
-                store (the store bench.py serves from), each sorted_moments
-                launch timed; sorted_moments (grouped) against its plain
-                version on that store, 4,096 of the fleet's last
-                observations; the gated driver runs 65,536 envs x 50 ticks
-                against it
+                store (the store bench.py serves from), compiled; its
+                eager loop, bit-equal, times each sorted_moments launch;
+                sorted_moments (grouped) against its plain version on
+                that store, 4,096 of the fleet's last observations; the
+                gated driver runs 65,536 envs x 50 ticks against it
   sharded       world size 1 through NCCL in this process (a one-rank
                 group; NCCL's all-gather, reduce-scatter and all-reduce
                 checked on the card): the trainer over the mesh from the
@@ -56,10 +58,27 @@ closed-loop CLIs (``examples/run_improvement.py``,
                 one sorted_moments launch on the merged store.  Rates of
                 the two-rank run are a correctness run, not a scaling
                 figure
+  graphs        the compiled run (utils/graphs.py) of each main-path
+                maker at the bench's widths: the gated driver at 65,536
+                envs x 50 ticks on the trainer-built store, the rule
+                driver at 32,768 x 300, the collector at 4,096 x 300 and
+                the trainer at 32,768 x 20 after 20 warm-up steps.  Each:
+                one eager tick under torch's sync debug mode "error" (no
+                host sync); graphed outputs, final carry and generator
+                state (the trainer's parameters, Adam state and store too)
+                bit-equal to the eager loop from the same carry and seed;
+                one store-kernel launch a tick under replay by the
+                counters and by a torch.profiler trace of replays (the
+                kernels' two passes by name); graphed and eager rates,
+                capture seconds, the graph pool's bytes and the device's
+                busy share of a replayed tick
   empty store   peraction_moments on 2^17 rows of 1e9 keys, none valid
                 (the closed loop's rule arm): zeros, bit-equal to its
                 plain version and to a second launch
-  improvement   improvement.run_improvement at examples/run_improvement.py's
+  improvement   (this and the two-session loop on the compiled route,
+                as users run them: the holds below take each run's
+                first tick and the capture's buffers, which hold the last)
+                improvement.run_improvement at examples/run_improvement.py's
                 defaults: train 2,048 envs x 2,000 steps (store 2^17), then
                 the empty-store and the gated fleet, 1,024 envs x 400 ticks;
                 one sorted_moments launch per step, one peraction_moments
@@ -199,8 +218,9 @@ closed-loop CLIs (``examples/run_improvement.py``,
                 launches are counted; a call that should reach a kernel
                 and did not fails
 
-Each rate comes from a run without probes; a replay of the same run then
-times each launch and reports its plan (kept and window sub-slices per
+Each rate comes from a run without probes (the main paths' on the
+compiled route); a replay of the same run on the eager loop then times
+each launch and reports its plan (kept and window sub-slices per
 query tile, chunks, scratch bytes, the persistent grid) and, for
 peraction_moments, how many (query, kept 128-row piece) pairs settle
 whole.  The 4,096-query checks repeat the launch (bit-equal outputs) and
@@ -212,6 +232,7 @@ Prints one line per phase, a JSON line of kernel numbers, and last
 without a CUDA device or without the package beside it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only graphs       # the compiled run, alone
     python3 chip_smoke.py --only lane,field   # build, then those phases
     python3 chip_smoke.py --only algos,vec
     python3 chip_smoke.py --only bridge,host  # the host layer and the agent
@@ -377,6 +398,16 @@ def timed_launches(module, name: str, record: list, probe):
         yield
     finally:
         setattr(module, name, orig)
+
+
+def eager_replay(run_fn, carry, n: int, generator, inputs=()):
+    """``n`` ticks of ``run_fn``'s maker on its eager loop (the route off
+    the card, and the reference of the replayed one), on the maker's own
+    tick and state: the per-launch probes wrap the Python launch
+    functions, which a replayed CUDA graph never calls."""
+    from dcarl_tpu_torch.utils import graphs
+
+    return graphs.run_loop(run_fn.runner.tick, carry, inputs, n, generator)
 
 
 def summarize(record: list) -> dict:
@@ -569,7 +600,9 @@ def keep_loop_launches(sk, slot: dict, every_sorted: bool = False):
     ``every_sorted``, for a store small enough) and of every
     ``launch_peraction`` (small queries; a run's launches share its
     prepared store): the operands the closed loop gave the kernels.
-    Launches still count."""
+    Launches still count.  In a compiled run the function is called by
+    the warm-up tick and by the capture, whose kept arguments and output
+    (a clone recorded in the graph) hold what the last replay left."""
     origs = {n: getattr(sk, n) for n in ("launch_sorted", "launch_peraction")}
 
     def wrap(name, fn):
@@ -633,7 +666,9 @@ def hold_kept_launches(sk, kept: dict, what: str) -> dict:
     """A main-path call's kept launches against the kernels' plain
     versions on the same operands: the last ``sorted_moments`` launch and
     the ``peraction_moments`` launch with the most matches (a fleet may
-    have left the store's rows by its last tick).  {kernel: max |err|}.
+    have left the store's rows by its last tick; a compiled run keeps
+    its first tick's launch and the capture's, which holds its last
+    tick's operands and output).  {kernel: max |err|}.
     A store with no live row must give zeros, bit-equal to its plain
     version."""
     errs = {}
@@ -674,15 +709,51 @@ def gated_e2e(imp, cfg, store, what: str) -> dict:
                 episodes=runs[0]["episodes"])
 
 
+def deployment_eq_eager(cfg, store, envs: int, ticks: int, what: str
+                        ) -> dict:
+    """The closed loop's gated deployment on its trained store, as
+    ``evaluate_gated`` runs it (compiled), and on the eager loop from the
+    same carry and seed: the outputs bit-equal.  Rates of both."""
+    from dcarl_tpu_torch.env.scenario import t_intersection
+    from dcarl_tpu_torch.planning import fast_rollout as fr
+
+    init_f, run_f = fr.make_gated_driver_fast(
+        t_intersection(cfg.env), cfg.env, cfg.werling, store_cfg=cfg.store,
+        use_kernel=True)
+    st = [torch.as_tensor(store[k], device="cuda")
+          for k in ("keys", "values", "valid")]
+    carry = init_f(envs, torch.Generator(device="cuda").manual_seed(
+        SEED + 101))
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(SEED + 102)
+
+    run_f(carry, ticks, *st, generator=gen())       # warm-up + capture
+    seconds, outs = [], []
+    for eager in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = (eager_replay(run_f, carry, ticks, gen(), run_f.inputs(*st))
+                  if eager else run_f(carry, ticks, *st, generator=gen()))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        outs.append(out)
+    bit_equal(outs[0], outs[1], what)
+    return dict(envs=envs, ticks=ticks, bit_equal=True,
+                compiled_env_steps_per_s=envs * ticks / seconds[0],
+                eager_env_steps_per_s=envs * ticks / seconds[1],
+                gate_share=float((outs[0][5] > 0).float().mean()))
+
+
 def improvement_phase(sk, _cuda, gpu: str) -> dict:
     """The closed loop at examples/run_improvement.py's defaults: train
     2,048 envs x 2,000 steps from an empty store, then the empty-store
     rule fleet and the gated fleet, 1,024 envs x 400 ticks each.  The
     kept launches of each call (:func:`hold_kept_launches`) are held
     against the plain versions on their own operands (the trained
-    2^17-row store and the fleet's queries), and the gated arm's
-    deployment is run again on the kernel and the brute route.  Returns
-    {kernel: max |err|}."""
+    2^17-row store and the fleet's queries); the gated arm's deployment
+    is run again on the kernel and the brute route, and at its full width
+    compiled against the eager loop.  Returns {kernel: max |err|}."""
     from dcarl_tpu_torch import improvement as imp
 
     steps, envs, ticks = 2000, 1024, 400
@@ -721,6 +792,8 @@ def improvement_phase(sk, _cuda, gpu: str) -> dict:
             "rule": hold_kept_launches(sk, rule_k, "improvement_rule"),
             "gated": hold_kept_launches(sk, gated_k, "improvement_gated")}
     e2e = gated_e2e(imp, cfg, store, "improvement e2e")
+    deploy = deployment_eq_eager(cfg, store, envs, ticks,
+                                 "improvement gated deployment")
     imp_ = rep["improvement"]
     emit("improvement", train_envs=2048, train_steps=steps, eval_envs=envs,
          eval_ticks=ticks, seconds=total_s, train_seconds=train_s,
@@ -741,7 +814,7 @@ def improvement_phase(sk, _cuda, gpu: str) -> dict:
          rule_collision_rate=rep["eval_rule"]["collision_rate"],
          gated_collision_rate=rep["eval_gated"]["collision_rate"],
          kept_launch_vs_plain_max_abs_err=errs, e2e_kernel_eq_brute=e2e,
-         gpu=gpu)
+         gated_deployment_compiled_eq_eager=deploy, gpu=gpu)
     return merge_errs(errs.values())
 
 
@@ -3417,6 +3490,274 @@ def entry_phase(_cuda, gpu: str, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The compiled run: each main-path maker replays one captured CUDA graph a
+# tick (utils/graphs.py), held bit for bit to its eager loop
+# ---------------------------------------------------------------------------
+
+GRAPH_SIZES = dict(gated_envs=65536, gated_ticks=50, rule_envs=32768,
+                   rule_ticks=300, collector_envs=4096, collector_ticks=300,
+                   train_envs=32768, train_warmup=20, train_steps=20)
+# the kernel functions of each store kernel's two passes, as a trace names
+# them
+GRAPH_KERNEL_NAMES = {"peraction_moments": ("peraction_main", "peraction_sum"),
+                      "sorted_moments": ("moments_main", "moments_sum")}
+REPLAYS_TRACED = 3
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Raise on any synchronizing CUDA call inside (torch's sync debug
+    mode)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def tensor_leaves(x) -> list:
+    """The tensors of a tree of tuples, lists and dicts, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in tensor_leaves(v)]
+    return []
+
+
+def bit_equal(a, b, what: str) -> int:
+    """Fail unless two trees hold the same tensors bit for bit; returns
+    how many tensors were compared."""
+    la, lb = tensor_leaves(a), tensor_leaves(b)
+    if len(la) != len(lb):
+        fail(f"{what}: {len(la)} tensors against {len(lb)}")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(x, y):
+            fail(f"{what}: tensor {i} {tuple(x.shape)} {x.dtype} differs "
+                 "between the graphed and the eager run")
+    return len(la)
+
+
+def replay_profile(cap, kernel: "str | None") -> dict:
+    """``torch.profiler`` over REPLAYS_TRACED replays of a captured tick,
+    each synchronised: kernel events per replay, the store kernel's
+    passes by name, and the device's busy share of a replay's span."""
+    from dcarl_tpu_torch.utils import profiling as PR
+
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_graph_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    with PR.trace(trace_dir):
+        for _ in range(REPLAYS_TRACED):
+            with PR.annotate("graph_replay"):
+                cap.graph.replay()
+                torch.cuda.synchronize()
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+    spans = [ev["dur"] for ev in events if ev.get("name") == "graph_replay"
+             and ev.get("cat") != "gpu_user_annotation"]
+    if not kernels or len(spans) != REPLAYS_TRACED:
+        fail(f"graph trace: {len(kernels)} kernel events, {len(spans)} "
+             f"replay spans")
+    named = {}
+    for k in GRAPH_KERNEL_NAMES.values():
+        for part in k:
+            named[part] = sum(part in ev.get("name", "") for ev in kernels) \
+                / REPLAYS_TRACED
+    want = {p: (1.0 if kernel and p in GRAPH_KERNEL_NAMES[kernel] else 0.0)
+            for p in named}
+    if named != want:
+        fail(f"graph trace: store-kernel events a replay {named} != {want}")
+    busy = sum(ev["dur"] for ev in kernels)
+    return dict(kernel_events_per_replay=len(kernels) / REPLAYS_TRACED,
+                store_kernel_events_per_replay=named,
+                replay_span_ms_mean=float(np.mean(spans)) / 1e3,
+                kernel_ms_per_replay=busy / REPLAYS_TRACED / 1e3,
+                device_busy_share=busy / sum(spans))
+
+
+def traced_launches(cap, kernel: str, what: str) -> dict:
+    """A main path's launches under replay are counted as the capture's
+    launches times the replays: hold that count to a trace of replays
+    (:func:`replay_profile`: the kernel's two passes once a replay)."""
+    if dict(cap.launches) != {kernel: 1}:
+        fail(f"{what}: the captured tick launched {dict(cap.launches)}")
+    prof = replay_profile(cap, kernel)
+    return dict(launches_counted_as="capture x replays, traced",
+                traced_kernel_events_per_replay=prof[
+                    "store_kernel_events_per_replay"],
+                replay_device_busy_share=prof["device_busy_share"])
+
+
+def graph_case(label: str, _cuda, run, carry, n: int, seed: int, dev,
+               gpu: str, kernel: "str | None" = None, inputs=(),
+               reset=lambda: None, learner=lambda: ()) -> dict:
+    """One maker's graphed run against its eager loop.  ``run(carry, n,
+    generator) -> (carry, outs)`` is the maker's run (compiled on the
+    card), ``run.runner.tick`` its tick; ``inputs`` are what its ticks
+    read besides the carry (the prepared store); ``reset()`` puts the
+    in-place state (a learner) back before each run and ``learner()``
+    gives it after one.  Checks: an eager tick with no host sync;
+    graphed outputs, final carry, generator state (and learner)
+    bit-equal to the eager loop's; one ``kernel`` launch a tick under
+    replay by the counters and by a trace of the replay."""
+    from dcarl_tpu_torch.utils import graphs
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def timed(fn):
+        reset()
+        g = gen()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(g)
+        torch.cuda.synchronize()
+        return out, g, time.perf_counter() - t0
+
+    def graphed(g):
+        return run(carry, n, g)
+
+    def eager(g):
+        return graphs.run_loop(run.runner.tick, carry, inputs, n, g)
+
+    reset()
+    graphs.run_loop(run.runner.tick, carry, inputs, 1, gen())  # caches
+    reset()
+    with no_host_sync():
+        graphs.run_loop(run.runner.tick, carry, inputs, 1, gen())
+    first, _, first_s = timed(graphed)            # warm-up tick + capture
+    cap = run.runner.last
+    _cuda.LAUNCHES.clear()
+    graphed_out, g_gen, graphed_s = timed(graphed)  # replays only
+    launches = dict(_cuda.LAUNCHES)
+    g_learner = [t.clone() for t in tensor_leaves(learner())]
+    eager_out, e_gen, eager_s = timed(eager)
+    e_learner = tensor_leaves(learner())
+    want = {kernel: n} if kernel else {}
+    if launches != want:
+        fail(f"graphs {label}: launches {launches} != {want}")
+    if cap is None or run.runner.last is not cap:
+        fail(f"graphs {label}: the second run captured again")
+    tensors = bit_equal(graphed_out, eager_out, f"graphs {label}")
+    tensors += bit_equal(first, eager_out, f"graphs {label} (capturing run)")
+    tensors += bit_equal(g_learner, e_learner, f"graphs {label} learner")
+    if not torch.equal(g_gen.get_state(), e_gen.get_state()):
+        fail(f"graphs {label}: the generator ends elsewhere than eager's")
+    prof = replay_profile(cap, kernel)
+    b = tensor_leaves(carry)[0].shape[-1]
+    out = dict(envs=b, ticks=n, graphed_env_steps_per_s=b * n / graphed_s,
+               eager_env_steps_per_s=b * n / eager_s,
+               speedup=eager_s / graphed_s, first_run_seconds=first_s,
+               capture_seconds=cap.capture_seconds,
+               graph_pool_bytes=cap.pool_bytes,
+               launches_per_replay=dict(cap.launches), launches=launches,
+               tensors_bit_equal=tensors, eager_tick_host_syncs=0, **prof,
+               gpu=gpu)
+    emit("graphs_" + label, **out)
+    return out
+
+
+def _with_store(run, store):
+    """The gated driver's ``run`` on a fixed store, called as
+    :func:`graph_case` calls a run."""
+    def call(carry, n: int, generator):
+        return run(carry, n, *store, generator=generator)
+
+    call.runner = run.runner
+    return call
+
+
+def _steps_of(factory):
+    """A trainer's runs of any length, called as :func:`graph_case` calls
+    a run."""
+    def call(carry, n: int, generator):
+        return factory(n)(carry, generator)
+
+    call.runner = factory(1).runner
+    return call
+
+
+def graphs_phase(_cuda, gpu: str, dev, store=None) -> dict:
+    """The four makers at the bench's widths, graphed against eager
+    (:func:`graph_case`): the gated driver on the 2^18-row trainer store
+    (built here when ``store`` is None), the rule driver, the collector
+    at the vehicle life's width and the trainer after its warm-up."""
+    from dcarl_tpu_torch.bench import (FILL_SEED, trainer_store,
+                                       trainer_store_fill)
+    from dcarl_tpu_torch.config import (DCARLConfig, EnvConfig,
+                                        driving_store_config)
+    from dcarl_tpu_torch.env.scenario import t_intersection
+    from dcarl_tpu_torch.planning import fast_rollout as fr
+    from dcarl_tpu_torch.train_fast import make_trainer_fast, snapshot
+
+    z = GRAPH_SIZES
+    t_phase = time.perf_counter()
+    env_cfg, scfg = EnvConfig(), driving_store_config()
+    sc = t_intersection(env_cfg)
+    if store is None:
+        init_f, _, run_fill = trainer_store_fill(1 << 18, 16384, 300, dev,
+                                                 scfg)
+        st_f, _ = run_fill(init_f(FILL_SEED), torch.Generator(
+            device=dev).manual_seed(FILL_SEED + 1))
+        store = trainer_store(st_f, 1 << 18)
+        del st_f, init_f, run_fill
+    cases = {}
+
+    init_g, run_g = fr.make_gated_driver_fast(sc, env_cfg, store_cfg=scfg)
+    carry = init_g(z["gated_envs"], torch.Generator(device=dev).manual_seed(
+        SEED + 40))
+    cases["gated"] = graph_case(
+        "gated", _cuda, _with_store(run_g, store), carry, z["gated_ticks"],
+        SEED + 41, dev, gpu, "peraction_moments",
+        inputs=run_g.inputs(*store))
+    del init_g, run_g, carry
+
+    for label, make, b, n in (
+            ("rule", fr.make_rule_driver_fast, z["rule_envs"],
+             z["rule_ticks"]),
+            ("collector", fr.make_collector_fast, z["collector_envs"],
+             z["collector_ticks"])):
+        init_fn, run_fn = make(sc, env_cfg)
+        carry = init_fn(b, torch.Generator(device=dev).manual_seed(SEED + 42))
+        cases[label] = graph_case(label, _cuda, run_fn, carry, n, SEED + 43,
+                                  dev, gpu)
+        del init_fn, run_fn, carry
+
+    kw = dict(batch_per_device=z["train_envs"],
+              store_capacity_per_device=1 << 16,
+              replay_capacity_per_device=1 << 16,
+              backfill_budget_per_step=8192)
+    init_t, _, learner, factory = make_trainer_fast(DCARLConfig(store=scfg),
+                                                    **kw)
+    state, _ = factory(z["train_warmup"])(init_t(SEED), torch.Generator(
+        device=dev).manual_seed(SEED + 44))
+    warm = snapshot(state), learner.state_dict()
+    cases["trainer"] = graph_case(
+        "trainer", _cuda, _steps_of(factory), warm[0], z["train_steps"],
+        SEED + 45, dev, gpu, "sorted_moments",
+        reset=lambda: learner.load_state_dict(warm[1]),
+        learner=learner.state_dict)
+    del init_t, learner, factory, state, warm
+    torch.cuda.empty_cache()
+    emit("graphs", seconds=time.perf_counter() - t_phase, gpu=gpu,
+         **{f"{k}_speedup": v["speedup"] for k, v in cases.items()})
+    for k, v in cases.items():
+        print(f"compiled run, {k}: {v['graphed_env_steps_per_s']:.6g} "
+              f"env-steps/s graphed, {v['eager_env_steps_per_s']:.6g} "
+              f"eager, capture {v['capture_seconds']:.3f} s, graph pool "
+              f"{v['graph_pool_bytes']} bytes, device busy "
+              f"{v['device_busy_share']:.3f} of a replay ({gpu})",
+              flush=True)
+    return cases
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = None
@@ -3424,9 +3765,10 @@ def main(argv=None) -> int:
         only = set(argv[1].split(",")) if len(argv) == 2 \
             and argv[0] == "--only" else None
         if not only or not only <= {"lane", "field", "vec", "algos", "host",
-                                    "bridge", "entry"}:
+                                    "bridge", "entry", "graphs"}:
             print("usage: chip_smoke.py [--only "
-                  "lane,field,algos,vec,host,bridge,entry]", file=sys.stderr)
+                  "graphs,lane,field,algos,vec,host,bridge,entry]",
+                  file=sys.stderr)
             return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -3475,6 +3817,8 @@ def main(argv=None) -> int:
              for k, log in reports.items()}
     emit("build", seconds=round(build_s, 3), ptxas=ptxas)
     if only:
+        if "graphs" in only:
+            graphs_phase(_cuda, gpu, dev)
         if "lane" in only:
             lane_phase(store_kernels, _cuda, gpu, dev)
         if "field" in only:
@@ -3603,33 +3947,44 @@ def main(argv=None) -> int:
          warp_row_empty_share=pa_warp_empty, **pa_settle)
 
     def gated_path(label, keys, vals, valid, seed):
-        """The gated driver at 65,536 envs x 50 ticks, counted, then a
-        replay of the same run with each launch timed."""
+        """The gated driver at 65,536 envs x 50 ticks on the compiled
+        route, counted (its first run on a new store size captures the
+        tick; the second is timed), then the same run on the eager loop
+        with each launch timed, bit-equal to it."""
         torch.cuda.reset_peak_memory_stats()
-        _cuda.LAUNCHES.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, out = run_g(carry0, main_t, keys, vals, valid,
-                       generator=torch.Generator(device=dev).manual_seed(seed))
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
+        runs = []
+        for _ in range(2):
+            _cuda.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, out = run_g(carry0, main_t, keys, vals, valid, generator=torch.
+                           Generator(device=dev).manual_seed(seed))
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        first_s, run_s = runs
+        cap = run_g.runner.last
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         launches = dict(_cuda.LAUNCHES)
         reward, done, passed, collided, executed, gated = out
         gate_share = float((gated > 0).float().mean())
         if launches != {"peraction_moments": main_t}:
             fail(f"{label}: kernel launches {launches} != {main_t} ticks")
+        traced = traced_launches(cap, "peraction_moments", label)
         if reward.shape != (main_t, main_b) or not torch.isfinite(reward).all():
             fail(f"{label}: rewards not finite or misshapen")
         record, settled = [], []
+        inputs = run_g.inputs(keys, vals, valid)
         with timed_launches(sk, "launch_peraction", record,
                             peraction_probe(sk, _cuda, settled)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            run_g(carry0, main_t, keys, vals, valid,
-                  generator=torch.Generator(device=dev).manual_seed(seed))
+            _, eager_out = eager_replay(
+                run_g, carry0, main_t,
+                torch.Generator(device=dev).manual_seed(seed), inputs)
             torch.cuda.synchronize()
             replay_s = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for a, b in zip(out, eager_out)):
+            fail(f"{label}: the compiled run differs from the eager loop")
         summ = summarize(record)
         for when, st in (("first", settled[0]), ("last", settled[-1])):
             summ.update({f"{k}_{when}_tick": v
@@ -3639,9 +3994,11 @@ def main(argv=None) -> int:
         )["piece_held_share"]
         emit(label, envs=main_b, ticks=main_t, store_rows=int(valid.sum()),
              env_steps_per_s=main_b * main_t / run_s, seconds=run_s,
-             replay_env_steps_per_s=main_b * main_t / replay_s,
-             kernel_share_of_replay=summ["kernel_ms_sum"] / (replay_s * 1e3),
-             launches=launches, gate_share=gate_share,
+             first_run_seconds=first_s, capture_seconds=cap.capture_seconds,
+             eager_replay_env_steps_per_s=main_b * main_t / replay_s,
+             kernel_share_of_eager_replay=summ["kernel_ms_sum"]
+             / (replay_s * 1e3), compiled_eq_eager=True,
+             launches=launches, **traced, gate_share=gate_share,
              done_share=float(done.float().mean()),
              pairs_total=float(main_b) * float(keys.shape[0]), **summ,
              peak_mem_gib=peak_gib, gpu=gpu)
@@ -3706,21 +4063,30 @@ def main(argv=None) -> int:
     grown = int(st_end.store_total[0]) - int(snap.store_total[0])
     if not (grown > 0 and int(ms.store_rows[-1]) > 0):
         fail("train path: the store did not grow")
+    tr_traced = traced_launches(run_timed.runner.last, "sorted_moments",
+                                "train path")
+    # the same steps on the eager loop, each launch timed: the same bits
     learner.load_state_dict(snap_learner)
     record = []
     with timed_launches(sk, "launch_sorted", record, sorted_probe(sk, _cuda)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_timed(snap, torch.Generator(device=dev).manual_seed(8))
+        st_eager, ms_eager = eager_replay(
+            run_timed, snap, timed, torch.Generator(device=dev).manual_seed(8))
         torch.cuda.synchronize()
         replay_s = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(
+            tensor_leaves((st_end, ms)), tensor_leaves((st_eager, ms_eager)))):
+        fail("train path: the compiled steps differ from the eager loop")
     so_summ = summarize(record)
     emit("train_path", envs=tr_b, warmup_steps=warm, steps=timed,
          store_capacity=tr_cap, warmup_seconds=warm_s, seconds=train_s,
          train_env_steps_per_s=tr_b * timed / train_s,
-         replay_env_steps_per_s=tr_b * timed / replay_s,
-         kernel_share_of_replay=so_summ["kernel_ms_sum"] / (replay_s * 1e3),
-         launches=tr_launches, loss_last=float(loss[-1]),
+         capture_seconds=run_timed.runner.last.capture_seconds,
+         eager_replay_env_steps_per_s=tr_b * timed / replay_s,
+         kernel_share_of_eager_replay=so_summ["kernel_ms_sum"]
+         / (replay_s * 1e3), compiled_eq_eager=True,
+         launches=tr_launches, **tr_traced, loss_last=float(loss[-1]),
          loss_mean=float(loss.mean()),
          store_rows_start=int(snap.store_size[0]),
          store_rows=int(ms.store_rows[-1]), store_slots_written=grown,
@@ -3875,15 +4241,22 @@ def main(argv=None) -> int:
     fill_launches = dict(_cuda.LAUNCHES)
     if fill_launches != {"sorted_moments": fill_steps}:
         fail(f"trainer fill: launches {fill_launches} != {fill_steps}")
+    fill_traced = traced_launches(run_fill.runner.last, "sorted_moments",
+                                  "trainer fill")
     learner_f.load_state_dict(fill_learner)
     fill_record = []
     with timed_launches(sk, "launch_sorted", fill_record, sorted_probe(sk, _cuda)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_fill(init_f(FILL_SEED),
-                 torch.Generator(device=dev).manual_seed(FILL_SEED + 1))
+        st_fe, _ = eager_replay(
+            run_fill, init_f(FILL_SEED), fill_steps,
+            torch.Generator(device=dev).manual_seed(FILL_SEED + 1))
         torch.cuda.synchronize()
         fill_replay_s = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(tensor_leaves(st_f),
+                                                 tensor_leaves(st_fe))):
+        fail("trainer fill: the compiled run differs from the eager loop")
+    del st_fe
     fill_summ = summarize(fill_record)
     f_rows = int(st_f.store_size[0])
     f_keys, f_vals, f_valid = trainer_store(st_f, fill_cap)
@@ -3894,9 +4267,10 @@ def main(argv=None) -> int:
          dropped_records=int(ms_f.dropped_records.sum()),
          loss_last=float(ms_f.loss[-1]),
          rule_fraction_last=float(ms_f.rule_fraction[-1]),
-         replay_env_steps_per_s=fill_tb * fill_steps / fill_replay_s,
-         kernel_share_of_replay=fill_summ["kernel_ms_sum"]
-         / (fill_replay_s * 1e3),
+         capture_seconds=run_fill.runner.last.capture_seconds,
+         eager_replay_env_steps_per_s=fill_tb * fill_steps / fill_replay_s,
+         kernel_share_of_eager_replay=fill_summ["kernel_ms_sum"]
+         / (fill_replay_s * 1e3), compiled_eq_eager=True, **fill_traced,
          **{"sorted_" + k: v for k, v in fill_summ.items()})
     if not torch.isfinite(ms_f.loss).all() or f_rows <= 0:
         fail("trainer fill: loss not finite or empty store")
@@ -3966,7 +4340,13 @@ def main(argv=None) -> int:
                                ref_z, main_t)
     emit("sharded", world_size_1=sharded_world1, two_ranks=two_ranks,
          seconds=time.perf_counter() - t_sh, gpu=gpu)
-    del f_keys, f_vals, f_valid, ref_z
+    del ref_z
+    torch.cuda.empty_cache()
+
+    # --- the compiled run: each maker's captured tick against its eager
+    # loop at the bench's widths, the gated driver on the trainer store
+    graphs_phase(_cuda, gpu, dev, (f_keys, f_vals, f_valid))
+    del f_keys, f_vals, f_valid
     torch.cuda.empty_cache()
 
     # --- the closed loop: train -> deploy, persist -> reload, vehicle life
@@ -4015,6 +4395,9 @@ def main(argv=None) -> int:
          "source": "dcarl_tpu_torch/csrc/peraction_moments.cu",
          "replaces": "dcarl_tpu/ops/pallas_store.py:490",
          "launches": pa_launches["peraction_moments"],
+         # a replay is not a Python call: the capture's count times the
+         # replays, held to a trace of replays
+         "launches_counted_as": "capture x replays, traced",
          "max_abs_err": max_err["peraction_moments"],
          "ms": pa_summ["kernel_ms_mean"], "plain_ms": pa_plain_ms,
          "bound_ms": pa_summ["bound_ms_mean"],
@@ -4024,6 +4407,7 @@ def main(argv=None) -> int:
          "source": "dcarl_tpu_torch/csrc/sorted_moments.cu",
          "replaces": "dcarl_tpu/ops/pallas_store.py:71",
          "launches": tr_launches["sorted_moments"],
+         "launches_counted_as": "capture x replays, traced",
          "max_abs_err": max_err["sorted_moments"],
          "ms": so_summ["kernel_ms_mean"], "plain_ms": so_plain_ms,
          "bound_ms": so_summ["bound_ms_mean"],

@@ -284,9 +284,14 @@ def adam_state_from_optax(opt_state: Any,
         for name, tr in (("kernel", True), ("bias", False)):
             p = lin.weight if tr else lin.bias
             m, v = np.array(mu[name]), np.array(nu[name])
+            capturable = optimizer.defaults["capturable"]
             optimizer.state[p] = {
-                # torch keeps Adam's step on the host unless capturable
-                "step": torch.tensor(step, dtype=torch.float32),
+                # torch keeps Adam's step on the host unless capturable;
+                # the port's capturable step count is float64 (models/dqn)
+                "step": torch.tensor(
+                    step, dtype=torch.float64 if capturable
+                    else torch.float32,
+                    device=p.device if capturable else "cpu"),
                 "exp_avg": torch.as_tensor(m.T if tr else m).to(p),
                 "exp_avg_sq": torch.as_tensor(v.T if tr else v).to(p)}
 

@@ -14,7 +14,12 @@ as tensors, so a caller can feed both packages the same draws.
 ``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) and
 ``torch.optim.Adam(lr)`` apply the same update up to rounding: optax
 divides the bias-corrected moments, torch folds the corrections into
-the step size and the denominator.
+the step size and the denominator.  ``capturable=True`` (CUDA only, for
+a step captured in a CUDA graph) keeps Adam's state on the device from
+the start and computes the corrections there.  Its step count is kept
+in float64: in float32, ``1 - 0.999 ** t`` loses 1.3e-5 of itself to
+cancellation at t = 1, and the trainer's TD residuals then leave their
+tolerance against optax (``tests/test_torch_graphs.py``).
 """
 
 from __future__ import annotations
@@ -55,19 +60,33 @@ class DQN:
     """Online net, target net and Adam; all three change in place."""
 
     def __init__(self, network: nn.Module, cfg: DQNConfig = DQNConfig(),
-                 double_q: bool = False):
+                 double_q: bool = False, capturable: bool = False):
         self.net = network
         self.target_net = copy.deepcopy(network).requires_grad_(False)
         self.cfg = cfg
         self.double_q = double_q
-        self.optimizer = torch.optim.Adam(self.net.parameters(), lr=cfg.lr)
+        self.optimizer = torch.optim.Adam(self.net.parameters(), lr=cfg.lr,
+                                          capturable=capturable)
+        self._start_adam()
+
+    def _start_adam(self) -> None:
+        """Adam afresh.  A capturable Adam gets its state now, as torch
+        makes it at a first step but with a float64 step count."""
+        self.optimizer.state.clear()
+        if self.optimizer.defaults["capturable"]:
+            for p in self.net.parameters():
+                self.optimizer.state[p] = {
+                    "step": torch.zeros((), dtype=torch.float64,
+                                        device=p.device),
+                    "exp_avg": torch.zeros_like(p),
+                    "exp_avg_sq": torch.zeros_like(p)}
 
     def reset(self, network: nn.Module) -> None:
         """Take ``network``'s weights as online and target weights and
         start Adam afresh."""
         self.net.load_state_dict(network.state_dict())
         self.target_net.load_state_dict(network.state_dict())
-        self.optimizer.state.clear()
+        self._start_adam()
 
     def state_dict(self) -> dict:
         """Copies of the online and target weights and Adam's state."""
@@ -76,9 +95,29 @@ class DQN:
                               "optimizer": self.optimizer.state_dict()})
 
     def load_state_dict(self, state: dict) -> None:
+        """Copy ``state`` in: the weights in place, and Adam's state into
+        the tensors it already has where their shapes, dtypes and devices
+        agree (a captured step goes on writing those).  Adam keeps its
+        own ``capturable``."""
         self.net.load_state_dict(state["net"])
         self.target_net.load_state_dict(state["target"])
+        capturable = self.optimizer.defaults["capturable"]
+        held = {p: dict(s) for p, s in self.optimizer.state.items()}
         self.optimizer.load_state_dict(copy.deepcopy(state["optimizer"]))
+        for group in self.optimizer.param_groups:
+            group["capturable"] = capturable
+        for p, loaded in self.optimizer.state.items():
+            if capturable and "step" in loaded:
+                # torch's load makes a capturable step float32
+                loaded["step"] = loaded["step"].to(p.device, torch.float64)
+            old = held.get(p, {})
+            if old.keys() == loaded.keys() and all(
+                    isinstance(v, torch.Tensor) and v.shape == old[k].shape
+                    and v.dtype == old[k].dtype and v.device == old[k].device
+                    for k, v in loaded.items()):
+                for k, v in loaded.items():
+                    old[k].copy_(v)
+                    loaded[k] = old[k]
 
     # ------------------------------------------------------------------
     def act_epsilon_greedy(self, obs: torch.Tensor, frame: torch.Tensor,

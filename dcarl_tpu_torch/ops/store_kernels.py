@@ -122,10 +122,17 @@ def _dim_order(keys: torch.Tensor, valid: torch.Tensor, w: torch.Tensor,
     sel = torch.nan_to_num(sel, nan=0.0, posinf=3e38)
     for i, dim in enumerate(last):
         if isinstance(dim, int):
-            sel[dim] = -1.0 - i
+            # a fill: ``sel[dim] = x`` would copy a host scalar to the
+            # device, which waits for it and cannot be graph-captured
+            sel[dim:dim + 1].fill_(-1.0 - i)
         else:
             sel = sel.index_fill(0, dim.reshape(1).to(torch.int64), -1.0 - i)
     return torch.argsort(sel, descending=True, stable=True).to(torch.int32)
+
+
+def _index_dim(x: torch.Tensor, dim: torch.Tensor) -> torch.Tensor:
+    """``x[:, dim]`` for a device-resident index (no host round trip)."""
+    return x.index_select(1, dim.reshape(1))[:, 0]
 
 
 class PreparedPerActionStore(NamedTuple):
@@ -224,9 +231,9 @@ def prepare_peraction_store(
     mean0 = (vf0 @ keys) / cnt0
     spread0 = (vf0 @ torch.abs(keys - mean0)) / cnt0
     sel0 = spread0[:obs_dim] / torch.clamp(w[:obs_dim], min=1e-9)
-    sel0[band_dim] = -1.0
+    sel0[band_dim:band_dim + 1].fill_(-1.0)
     sdim2 = torch.argmax(sel0)
-    w2 = w[sdim2]
+    w2 = w.index_select(0, sdim2.reshape(1))
 
     # Lexicographic sort: band cell of width 2*w0, second dim, then the
     # 64-bit row hash (brings bitwise-identical rows together for the
@@ -236,7 +243,7 @@ def prepare_peraction_store(
     cell_w = 2.0 * torch.clamp(w[band_dim], min=1e-9)
     cells_k = torch.where(valid, torch.floor(keys[:, band_dim] / cell_w),
                           torch.inf)
-    d2k = keys[:, sdim2]
+    d2k = _index_dim(keys, sdim2)
     h1, h2 = _row_hashes(keys)
     zero = torch.zeros_like(h1)
     order = _lexsort((torch.where(valid, h2, zero),
@@ -274,7 +281,7 @@ def prepare_peraction_store(
     wmom = torch.stack([cnt_r[run_id], sum_r[run_id], ssq_r[run_id]])
     wmom = (wmom * valid_s[None, :]).to(torch.float32)        # [3, N]
     sk_s = torch.where(valid_s, keys_s[:, band_dim], _PAD)
-    s2_s = torch.where(valid_s, keys_s[:, sdim2], _PAD)
+    s2_s = torch.where(valid_s, _index_dim(keys_s, sdim2), _PAD)
 
     n_pad = _round_up(max(n, n_tile), n_tile)
     sub_n = min(_SUB_N, n_tile)
@@ -357,7 +364,7 @@ def query_operands(prep: PreparedPerActionStore, queries: torch.Tensor,
     (band cell, second dim) order, and ``qext`` [4, ceil(B / q_tile)]
     f32, each sorted tile's (band lo, band hi, second-dim lo, hi)."""
     qbv = queries[:, prep.band_dim]
-    d2q = queries[:, prep.sdim2]
+    d2q = _index_dim(queries, prep.sdim2)
     qorder = _lexsort((d2q, torch.floor(qbv / prep.cell_w)))
     b = queries.shape[0]
     pad = _round_up(b, q_tile) - b
@@ -733,11 +740,6 @@ def sorted_moments(ops: SortedOperands) -> torch.Tensor:
         raise ValueError(f"unsupported device {dev}")
     _check_sorted_operands(ops)
     return launch_sorted(ops)
-
-
-def _index_dim(x: torch.Tensor, dim: torch.Tensor) -> torch.Tensor:
-    """``x[:, dim]`` for a device-resident index (no host round trip)."""
-    return x.index_select(1, dim.reshape(1))[:, 0]
 
 
 def sorted_query_operands(keys, values, valid, queries, half_widths

@@ -11,9 +11,11 @@ The port keeps the JAX package's layouts at its functions: per-env
 scalars ``[B]``, per-(path, time) data ``[P, T, B]``.  Where the JAX code
 looks a table up with a one-hot matmul or masked accumulate (fast on a
 TPU's matrix unit), the port gathers by index, which gives the same bits
-and keeps TF32 out of the picture.  ``jit``/``scan`` become a Python step
-loop; PRNG keys become a ``torch.Generator`` that draws the auto-reset
-jitter.
+and keeps TF32 out of the picture.  ``jit`` over ``scan`` becomes one
+captured CUDA graph of a tick, replayed once a tick, on a CUDA device
+(``utils/graphs.py``; on the CPU and over a mesh, the eager loop, which
+is also its reference); PRNG keys become a ``torch.Generator`` that
+draws the auto-reset jitter.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from dcarl_tpu_torch.ops import polynomial as poly
 from dcarl_tpu_torch.ops import store_kernels
 from dcarl_tpu_torch.parallel import collectives as coll
 from dcarl_tpu_torch.parallel.mesh import ProcessMesh
+from dcarl_tpu_torch.utils import graphs
 
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
@@ -634,21 +637,27 @@ def make_rule_driver_fast(sc: Scenario,
       run_fn(carry, n_steps, generator)  -> (carry, (reward, done,
                                              passed, collided)), each [S, B]
 
-    ``device=None`` runs on ``cuda`` (which must exist)."""
+    ``device=None`` runs on ``cuda`` (which must exist).  On CUDA each
+    run replays one captured CUDA graph of a tick
+    (``utils/graphs.TickRunner``, ``run_fn.runner``); on the CPU it runs
+    the eager loop, ``graphs.run_loop(run_fn.runner.tick, ...)``, which
+    gives the same bits."""
     device, sa, idx, tab, init_fn = _setup(sc, env_cfg, dtype, device)
     n_obj = (env_cfg.state_dim - 5) // 5
     n_v = len(wcfg.target_speeds)
 
-    def run_fn(carry: FastEnvState, n_steps: int, generator: torch.Generator):
-        outs = []
-        state = carry
-        for _ in range(n_steps):
-            tick = _plan_tick(state, idx, tab, wcfg, n_obj)
-            state, reward, done = _follow(tick, tick.rule_index, n_v, state,
-                                          generator, sa, env_cfg)
-            outs.append((reward, done, state.passed, state.collided))
-        return state, tuple(torch.stack(o) for o in zip(*outs))
+    def tick(state: FastEnvState, _inputs, generator: torch.Generator):
+        t = _plan_tick(state, idx, tab, wcfg, n_obj)
+        state, reward, done = _follow(t, t.rule_index, n_v, state,
+                                      generator, sa, env_cfg)
+        return state, (reward, done, state.passed, state.collided)
 
+    runner = graphs.TickRunner(tick, device.type == "cuda")
+
+    def run_fn(carry: FastEnvState, n_steps: int, generator: torch.Generator):
+        return runner(carry, (), n_steps, generator)
+
+    run_fn.runner = runner
     return init_fn, run_fn
 
 
@@ -689,7 +698,8 @@ def make_collector_fast(sc: Scenario,
       init_fn(batch, generator)          -> FastCollectorCarry
       run_fn(carry, n_steps, generator)  -> (carry, FastStepRecord), each
                                             record field [S, ...]
-    ``device=None`` runs on ``cuda`` (which must exist)."""
+    ``device=None`` runs on ``cuda`` (which must exist); the run is
+    compiled on CUDA, as :func:`make_rule_driver_fast`'s."""
     device, sa, idx, tab, env_init = _setup(sc, env_cfg, dtype, device)
     n_obj = (env_cfg.state_dim - 5) // 5
     n_v = len(wcfg.target_speeds)
@@ -710,16 +720,16 @@ def make_collector_fast(sc: Scenario,
             recorded_state=z(env_cfg.state_dim, batch),
             used_action=z(batch, dt=torch.int32))
 
-    def one_step(carry: FastCollectorCarry, generator: torch.Generator):
+    def tick(carry: FastCollectorCarry, _inputs, generator: torch.Generator):
         state = carry.env
-        tick = _plan_tick(state, idx, tab, wcfg, n_obj)
-        obs, lat = tick.obs, tick.lat
+        t = _plan_tick(state, idx, tab, wcfg, n_obj)
+        obs, lat = t.obs, t.lat
 
         # trigger: lock the round-robin candidate once y < trigger_y
         trigger_now = (~carry.triggered) & (obs[1] < y_trigger)
         hrl_x, hrl_y, hrl_se = _pick_path(lat, carry.used_action.to(torch.int64),
                                           n_v)
-        rule_x, rule_y, rule_se = _pick_path(lat, tick.rule_index, n_v)
+        rule_x, rule_y, rule_se = _pick_path(lat, t.rule_index, n_v)
 
         locked_x = torch.where(trigger_now[None, :], hrl_x, carry.locked_x)
         locked_y = torch.where(trigger_now[None, :], hrl_y, carry.locked_y)
@@ -743,7 +753,7 @@ def make_collector_fast(sc: Scenario,
             done=done, collided=state.collided, passed=state.passed,
             recorded_state=recorded_state, used_action=carry.used_action,
             episode_return=episode_return_before + reward, reward=reward,
-            rule_index=tick.rule_index)
+            rule_index=t.rule_index)
         used_action = torch.where(done, (carry.used_action + 1) % n_actions,
                                   carry.used_action).to(torch.int32)
         triggered = torch.where(done, False, triggered)
@@ -752,14 +762,13 @@ def make_collector_fast(sc: Scenario,
             locked_y=locked_y, locked_speed_end=locked_se,
             recorded_state=recorded_state, used_action=used_action), record
 
+    runner = graphs.TickRunner(tick, device.type == "cuda")
+
     def run_fn(carry: FastCollectorCarry, n_steps: int,
                generator: torch.Generator):
-        recs = []
-        for _ in range(n_steps):
-            carry, rec = one_step(carry, generator)
-            recs.append(rec)
-        return carry, FastStepRecord(*(torch.stack(f) for f in zip(*recs)))
+        return runner(carry, (), n_steps, generator)
 
+    run_fn.runner = runner
     return init_fn, run_fn
 
 
@@ -827,6 +836,12 @@ def make_gated_driver_fast(sc: Scenario,
     argument, added to every observation before the store query only
     (the vehicle-life frame alignment of ``workingset.py``).
 
+    On CUDA the run is compiled, as :func:`make_rule_driver_fast`'s: the
+    store is prepared once a run, outside the graph, as JAX prepares it
+    once before its scan; ``run_fn.inputs(store_keys, store_values,
+    store_valid[, query_offset])`` gives what a run's ticks read, which
+    the captured graph's buffers take by copy.
+
     ``mesh`` (JAX's ``psum_axis`` path, :func:`make_gated_driver_sharded`):
     the carry holds this rank's block of the envs and the store arguments
     this rank's rows.  Each tick every env's gate sees the whole store:
@@ -839,7 +854,8 @@ def make_gated_driver_fast(sc: Scenario,
     ranks' sums cross in f64 and are rounded to f32 once, after the
     reduce-scatter: a gate then sees the bits of the one-rank run (f32
     partials summed across ranks flipped a decision in a 65,536-env run
-    on the card).  The brute route reduces f32 moments, as JAX's does."""
+    on the card).  The brute route reduces f32 moments, as JAX's does.
+    Over a mesh the run stays eager."""
     if mesh is not None:
         device = mesh.device
     device, sa, idx, tab, init_fn = _setup(sc, env_cfg, dtype, device)
@@ -863,54 +879,66 @@ def make_gated_driver_fast(sc: Scenario,
     half_widths = torch.as_tensor(hw, dtype=dtype, device=device)
     sum_dtype = torch.float32 if mesh is None else torch.float64
 
+    def run_inputs(store_keys, store_values, store_valid, query_offset=None):
+        """What every tick of a run reads: the prepared store (the keys,
+        values and valid rows in the working dtype on the brute route)
+        and the query offset on the device, or None."""
+        store_keys = torch.as_tensor(store_keys, device=device)
+        store_values = torch.as_tensor(store_values, device=device)
+        store_valid = torch.as_tensor(store_valid, device=device)
+        if use_kernel:
+            store = store_kernels.prepare_peraction_store(
+                store_keys, store_values, store_valid, half_widths,
+                num_actions=num_actions)
+        else:
+            store = (store_keys.to(dtype), store_values.to(dtype), store_valid)
+        offset = None if query_offset is None else torch.as_tensor(
+            query_offset, device=device).to(dtype)
+        return store, offset
+
+    def tick(state: FastEnvState, inputs, generator: torch.Generator):
+        store, offset = inputs
+        t = _plan_tick(state, idx, tab, wcfg, n_obj)
+        b = t.obs.shape[1]
+        obs_bf = t.obs.T                                      # [B, 20]
+        if offset is not None:
+            obs_bf = obs_bf + offset[None, :]
+        obs_q = obs_bf if mesh is None else coll.all_gather(obs_bf, mesh)
+        if use_kernel:
+            moments = store_kernels.query_peraction_prepared(
+                store, obs_q.to(torch.float32).contiguous(),
+                out_dtype=sum_dtype).reshape(-1, 3)
+        else:
+            keys_w, vals_w, valid = store
+            moments = _raw_moments(keys_w, vals_w, valid, obs_q, half_widths,
+                                   num_actions)
+        if mesh is not None:
+            moments = coll.reduce_scatter(moments, mesh).to(torch.float32)
+        qs = moments_to_stats(moments)
+        stats = RLSmod.ActionStats(
+            count=qs.count.reshape(b, num_actions).to(dtype),
+            mean=qs.mean.reshape(b, num_actions).to(dtype),
+            var=qs.var.reshape(b, num_actions).to(dtype),
+            sigma=qs.sigma.reshape(b, num_actions).to(dtype))
+        g = RLSmod.act_test(stats, scfg)                       # [B]
+        executed = torch.where(g == 0, t.rule_index, g).to(torch.int32)
+        state, reward, done = _follow(t, executed.to(torch.int64), n_v,
+                                      state, generator, sa, env_cfg)
+        return state, (reward, done, state.passed, state.collided, executed,
+                       g)
+
+    runner = graphs.TickRunner(tick, device.type == "cuda" and mesh is None)
+
     def run_fn(carry: FastEnvState, n_steps: int, store_keys, store_values,
                store_valid, query_offset=None, *, generator: torch.Generator):
         if (query_offset is not None) != with_query_offset:
             raise TypeError("query_offset is given iff the driver was made "
                             "with_query_offset=True")
-        store_keys = torch.as_tensor(store_keys, device=device)
-        store_values = torch.as_tensor(store_values, device=device)
-        store_valid = torch.as_tensor(store_valid, device=device)
-        if use_kernel:
-            prep = store_kernels.prepare_peraction_store(
-                store_keys, store_values, store_valid, half_widths,
-                num_actions=num_actions)
-        else:
-            keys_w = store_keys.to(dtype)
-            vals_w = store_values.to(dtype)
-        outs = []
-        state = carry
-        for _ in range(n_steps):
-            tick = _plan_tick(state, idx, tab, wcfg, n_obj)
-            b = tick.obs.shape[1]
-            obs_bf = tick.obs.T                               # [B, 20]
-            if query_offset is not None:
-                obs_bf = obs_bf + torch.as_tensor(
-                    query_offset, device=device).to(obs_bf.dtype)[None, :]
-            obs_q = obs_bf if mesh is None else coll.all_gather(obs_bf, mesh)
-            if use_kernel:
-                moments = store_kernels.query_peraction_prepared(
-                    prep, obs_q.to(torch.float32).contiguous(),
-                    out_dtype=sum_dtype).reshape(-1, 3)
-            else:
-                moments = _raw_moments(keys_w, vals_w, store_valid, obs_q,
-                                       half_widths, num_actions)
-            if mesh is not None:
-                moments = coll.reduce_scatter(moments, mesh).to(torch.float32)
-            qs = moments_to_stats(moments)
-            stats = RLSmod.ActionStats(
-                count=qs.count.reshape(b, num_actions).to(dtype),
-                mean=qs.mean.reshape(b, num_actions).to(dtype),
-                var=qs.var.reshape(b, num_actions).to(dtype),
-                sigma=qs.sigma.reshape(b, num_actions).to(dtype))
-            g = RLSmod.act_test(stats, scfg)                   # [B]
-            executed = torch.where(g == 0, tick.rule_index, g).to(torch.int32)
-            state, reward, done = _follow(tick, executed.to(torch.int64), n_v,
-                                          state, generator, sa, env_cfg)
-            outs.append((reward, done, state.passed, state.collided,
-                         executed, g))
-        return state, tuple(torch.stack(o) for o in zip(*outs))
+        return runner(carry, run_inputs(store_keys, store_values, store_valid,
+                                        query_offset), n_steps, generator)
 
+    run_fn.inputs = run_inputs
+    run_fn.runner = runner
     return init_fn, run_fn
 
 

@@ -34,6 +34,11 @@ package's draws; ``step_fn`` makes them from a ``torch.Generator``,
 which on rank r of a mesh is the rank's own (:func:`rank_seed`, the
 counterpart of JAX's ``fold_in(key, axis_index)``).  Nothing in a step
 waits on the device.
+
+On CUDA a run of steps replays one captured CUDA graph of a step
+(``utils/graphs.py``), as JAX jits its scan of steps; the learner's
+Adam is then ``capturable`` (its state on the device), and so is the
+eager loop's on the card, so the two give the same bits.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from dcarl_tpu_torch.parallel import collectives as coll
 from dcarl_tpu_torch.parallel.mesh import ProcessMesh
 from dcarl_tpu_torch.planning import fast_rollout as FR
 from dcarl_tpu_torch.train import StepMetrics, reduce_metrics
+from dcarl_tpu_torch.utils import graphs
 
 
 class FastTrainState(NamedTuple):
@@ -165,6 +171,12 @@ def make_trainer_fast(
       run_fn_factory(n)         -> run_fn(state, generator) taking n
                                    steps, metrics stacked to [n]
 
+    On CUDA without ``mesh`` a ``run_fn`` replays one captured CUDA graph
+    a step (the runner, shared by every factory's ``run_fn``, is
+    ``run_fn.runner``); elsewhere it runs the eager loop,
+    ``graphs.run_loop(run_fn.runner.tick, ...)``, the same bits.
+    ``step_fn`` is always eager.
+
     ``use_kernel`` (None = on CUDA) queries through the sorted-band
     kernel route (``store_kernels.box_query_moments_grouped``; its plain
     version on CPU tensors); False through the brute ``_raw_moments``.
@@ -216,7 +228,9 @@ def make_trainer_fast(
                              generator=torch.Generator().manual_seed(seed)
                              ).to(device)
 
-    learner = DQ.DQN(make_net(0), cfg=dq)
+    # capturable Adam on the card, graphed or not: both routes give the
+    # same bits (torch takes it on CUDA tensors only)
+    learner = DQ.DQN(make_net(0), cfg=dq, capturable=device.type == "cuda")
 
     # ------------------------------------------------------------------
     n_shards = 1 if mesh is None else mesh.size
@@ -390,18 +404,30 @@ def make_trainer_fast(
     step_fn.with_draws = with_draws
     step_fn.draw = draw
 
+    def tick(state: FastTrainState, _inputs, generator: torch.Generator):
+        return step_fn(state, generator)
+
+    def learner_tensors():
+        """What a step updates in place: the weights, the target weights
+        and Adam's state."""
+        opt_state = learner.optimizer.state
+        return [*learner.net.parameters(), *learner.target_net.parameters(),
+                *(v for p in learner.net.parameters()
+                  for v in opt_state.get(p, {}).values()
+                  if isinstance(v, torch.Tensor))]
+
+    runner = graphs.TickRunner(tick, device.type == "cuda" and mesh is None,
+                               state=learner_tensors)
+
     def run_fn_factory(n_steps: int):
-        """A runner of ``n_steps`` training steps (a Python loop; the
-        metrics come back stacked to [n_steps])."""
+        """A runner of ``n_steps`` training steps (the metrics come back
+        stacked to [n_steps])."""
 
         def run_fn(state: FastTrainState, generator: torch.Generator
                    ) -> Tuple[FastTrainState, StepMetrics]:
-            ms = []
-            for _ in range(n_steps):
-                state, m = step_fn(state, generator)
-                ms.append(m)
-            return state, StepMetrics(*(torch.stack(f) for f in zip(*ms)))
+            return runner(state, (), n_steps, generator)
 
+        run_fn.runner = runner
         return run_fn
 
     return init_fn, step_fn, learner, run_fn_factory
