@@ -109,8 +109,14 @@ closed-loop CLIs (``examples/run_improvement.py``,
                 steps: one sorted_moments launch (D = 4) per trained step,
                 none in warm-up, 2^14 trust-set rows; the launch with the
                 most matches against its plain version and again
-                bit-equal; 20 steps from a step-600 snapshot, kernel route
-                == brute route; the trained set served to 65,536 rule-fleet
+                bit-equal; steps 600-1,000 again from a step-600
+                snapshot without probes on the compiled route (warm
+                steps eager, then one captured CUDA graph replayed a
+                step) and on the eager loop: metrics, carry, generator,
+                learner and Adam state bit-equal, one launch a trained
+                step by the counters and in a trace of replays; 20 steps
+                from that snapshot, kernel route == brute route; the
+                trained set served to 65,536 rule-fleet
                 observations (720,896 queries a launch) through act_ts,
                 act_ts_explore and hybrid_act, each launch timed, 4,096 of
                 its queries against the plain version; the golden
@@ -184,21 +190,30 @@ closed-loop CLIs (``examples/run_improvement.py``,
                 AsyncLogWriter, npy_mmap and NpyStream, byte-equal
   bridge        the DCARL agent (bridge/agent_session.py) at the example's
                 widths (StoreConfig(), replay 2^16, MLPQNet 8 x 128)
-                served over TCP by bridge/agent_server.py: a cold first
-                tick timed on a throwaway session, whose training ticks
-                past its first SGD steps wait for the card once each; the
-                ported selftest (400 ticks, training) with ticks/s and
-                round-trip latency, then its ticks again in its logged
-                order on the card (actions equal, losses within rtol 1e-5
-                / atol 1e-6) and on the CPU from the card's learner state
-                of each tick (the same); then test mode on a full store
-                of the agent's rows, 4 concurrent planners x 64 messages,
-                equal to a CPU session replaying the card's order of
-                arrival, a card replay timing each launch; one
-                sorted_moments launch (8 queries, D = 21) a tick in both
-                served runs; the tick's launch against the plain version
-                and again bit-equal; a traced stretch of ticks (one sync
-                a tick, kernels, device busy share).  The clients fall
+                served over TCP by bridge/agent_server.py, its tick
+                compiled (one captured CUDA graph a variant, replayed a
+                request) and eager (decide_eager): a cold first tick
+                timed on a throwaway session, whose replayed training
+                ticks past its first SGD steps wait for the card once
+                each; the ported selftest (400 ticks, training) on both
+                routes from one seed, with ticks/s and round-trip
+                latency, the same replies and the same state bit for bit
+                (store, window, replay, frame, weights, Adam state,
+                generator); then its ticks again in its logged order on
+                an eager card session (bit-equal to the compiled one) and
+                on the CPU from the card's learner state of each tick
+                (actions equal, losses within rtol 1e-5 / atol 1e-6);
+                then test mode on a full store of the agent's rows, 4
+                concurrent planners x 64 messages on both routes, the
+                compiled session equal to a CPU session replaying its
+                order of arrival and bit-equal to an eager card replay
+                timing each launch; one sorted_moments launch (8
+                queries, D = 21) a tick in every served run (on the
+                compiled route the capture's count times the replays);
+                the tick's launch against the plain version and again
+                bit-equal; a traced stretch of ticks on each route (one
+                sync a tick, one pass of each sorted_moments kernel a
+                tick, kernels, device busy share).  The clients fall
                 back to -1 and the served policy records any exception: a
                 fallback, an exception or a tick count other than the
                 requests fails the phase
@@ -233,6 +248,7 @@ without a CUDA device or without the package beside it.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only graphs       # the compiled run, alone
+    python3 chip_smoke.py --only trustset     # the trust-set trainer
     python3 chip_smoke.py --only lane,field   # build, then those phases
     python3 chip_smoke.py --only algos,vec
     python3 chip_smoke.py --only bridge,host  # the host layer and the agent
@@ -1019,19 +1035,21 @@ def vehicle_life_phase(sk, _cuda, hw, gpu: str) -> None:
          gpu=gpu)
 
 
-def trustset_phase(sk, _cuda, gpu: str) -> tuple:
+def trustset_phase(sk, _cuda, gpu: str) -> dict:
     """The trust-set DQN trainer at the JAX package's defaults (64 envs,
     ``DQNConfig()``, replay and trust set 2^14, ``SegmentConfig()``) for
     1,000 steps, one ``sorted_moments`` launch (D = 4) per trained step
     and none in warm-up; the rate from steps 600-1,000 rerun without
-    probes from a step-600 snapshot; the launch with the most matches
+    probes from a step-600 snapshot, compiled (one captured step replayed
+    a step) and on the eager loop, bit-equal; the launch with the most matches
     against the plain version, and again bit-equal; 20 steps from that
     snapshot on the kernel and the brute route with the same draws; the
     trained trust set served to 65,536 of the rule driver's observations
     through ``act_ts``, ``act_ts_explore`` and ``hybrid_act``; the golden
     confidence core on a 20,000-row stream on the card against the CPU,
     and ``running_update_batch`` over 4,096 streams.  Returns the max
-    |err| of the kept launch and of the fleet's launch."""
+    |err| of the kept launch and of the fleet's launch (``errs``) and the
+    compiled rerun's launches."""
     from dcarl_tpu_torch.config import EnvConfig
     from dcarl_tpu_torch.core import confidence as C
     from dcarl_tpu_torch.core.rls import candidate_keys
@@ -1043,6 +1061,7 @@ def trustset_phase(sk, _cuda, gpu: str) -> tuple:
     from dcarl_tpu_torch.models import trustset as TS
     from dcarl_tpu_torch.planning import fast_rollout as fr
     from dcarl_tpu_torch.train_fast import snapshot
+    from dcarl_tpu_torch.utils import graphs
 
     dev = torch.device("cuda")
     envs, steps, snap_at, e2e_steps = 64, 1000, 600, 20
@@ -1107,19 +1126,42 @@ def trustset_phase(sk, _cuda, gpu: str) -> tuple:
     final_state = learner.state_dict()
     lap("train")
 
-    # the rate: the same steps from the snapshot on, without probes
-    learner.load_state_dict(snap[1])
-    c = snapshot(snap[0])
-    tgen = torch.Generator(device=dev)
-    tgen.set_state(snap[2])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(snap_at, steps):
-        c, _ = run_s.step(c, tgen)
-    torch.cuda.synchronize()
-    run_sec = time.perf_counter() - t0
+    # the rate: the same steps from the snapshot on, without probes, on
+    # the compiled route (its first run warms up and captures a step,
+    # the second replays only) and on the eager loop: the same bits
+    def rerun(route):
+        learner.load_state_dict(snap[1])
+        g = torch.Generator(device=dev)
+        g.set_state(snap[2])
+        _cuda.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if route == "eager":
+            out = graphs.run_loop(run_s.runner.tick, snapshot(snap[0]), (),
+                                  steps - snap_at, g)
+        else:
+            out = run_s(snapshot(snap[0]), g, steps - snap_at)
+        torch.cuda.synchronize()
+        return (out, learner.state_dict(), g.get_state(),
+                time.perf_counter() - t0, dict(_cuda.LAUNCHES))
+
+    first_run = rerun("compiled")
+    ts_cap = run_s.runner.last
+    graphed = rerun("compiled")
+    if run_s.runner.last is not ts_cap:
+        fail("trustset: the second compiled run captured again")
+    eager = rerun("eager")
+    if not graphed[4] == eager[4] == {"sorted_moments": steps - snap_at}:
+        fail(f"trustset: compiled launches {graphed[4]}, eager {eager[4]}, "
+             f"!= {steps - snap_at} trained steps")
+    ts_tensors = bit_equal(graphed[:3], eager[:3], "trustset compiled run")
+    ts_tensors += bit_equal(first_run[:3], eager[:3],
+                            "trustset compiled run (capturing)")
+    run_sec, eager_sec = graphed[3], eager[3]
+    ts_launches = graphed[4]["sorted_moments"]
+    ts_traced = traced_launches(ts_cap, "sorted_moments", "trustset")
+    del first_run, graphed, eager
     learner.load_state_dict(final_state)
-    del c
     lap("rate")
 
     # the launch with the most matches against the plain version
@@ -1285,7 +1327,12 @@ def trustset_phase(sk, _cuda, gpu: str) -> tuple:
          trained_steps=steps - n_warm, probed_seconds=probed_sec,
          timed_steps=steps - snap_at, seconds=run_sec,
          env_steps_per_s=envs * (steps - snap_at) / run_sec,
-         launches=launches,
+         eager_seconds=eager_sec,
+         eager_env_steps_per_s=envs * (steps - snap_at) / eager_sec,
+         compiled_eq_eager_tensors=ts_tensors,
+         capture_seconds=ts_cap.capture_seconds,
+         graph_pool_bytes=ts_cap.pool_bytes, compiled_launches=ts_launches,
+         **ts_traced, launches=launches,
          launches_per_trained_step=launches["sorted_moments"] / (steps - n_warm),
          ts_rows=int(met["ts_rows"][-1]), replay_rows=int(met["replay_size"][-1]),
          pushed=int(met["pushed"].sum()),
@@ -1324,7 +1371,13 @@ def trustset_phase(sk, _cuda, gpu: str) -> tuple:
          running_batch_streams=4096, running_batch_samples=1000,
          running_batch_cuda_seconds=batch_s["cuda"],
          running_batch_cpu_seconds=batch_s["cpu"], gpu=gpu)
-    return err, f_err
+    print(f"trust-set trainer ({envs} envs, steps {snap_at}-{steps}): "
+          f"{envs * (steps - snap_at) / run_sec:.6g} env-steps/s compiled, "
+          f"{envs * (steps - snap_at) / eager_sec:.6g} eager, capture "
+          f"{ts_cap.capture_seconds:.3f} s, graph pool "
+          f"{ts_cap.pool_bytes} bytes, device busy {ts_traced['replay_device_busy_share']:.3f} of a "
+          f"replay ({gpu})", flush=True)
+    return dict(errs=(err, f_err), launches=ts_launches)
 
 
 def readable_phase(sk, _cuda, hw, gpu: str) -> float:
@@ -2911,9 +2964,10 @@ def host_phase(gpu: str, dev, data: AgentData) -> dict:
     return dict(max_abs_err=max(errs.values()))
 
 
-def count_syncs(sess, msgs: list) -> dict:
-    """``msgs`` through ``sess.decide`` (no sockets) under CUDA's sync
-    debug mode: the calls that wait for the card, per tick, and where."""
+def count_syncs(serve, msgs: list) -> dict:
+    """``msgs`` through ``serve`` (a session's ``decide`` or
+    ``decide_eager``; no sockets) under CUDA's sync debug mode: the calls
+    that wait for the card, per tick, and where."""
     import warnings
 
     torch.cuda.set_sync_debug_mode("warn")
@@ -2921,7 +2975,7 @@ def count_syncs(sess, msgs: list) -> dict:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             for m in msgs:
-                sess.decide(m)
+                serve(m)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     syncs = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
@@ -2930,14 +2984,15 @@ def count_syncs(sess, msgs: list) -> dict:
                 sync_sites=sorted(set(syncs))[:8])
 
 
-def agent_tick_profile(sess, msgs: list) -> dict:
-    """Where a tick's time goes: ``msgs`` through ``sess.decide`` once
-    under :func:`count_syncs`, then under ``torch.profiler``: a tick's
-    span, its CUDA kernels (``sorted_moments`` apart) and the device's
-    busy share of the span."""
+def agent_tick_profile(serve, msgs: list) -> dict:
+    """Where a tick's time goes: ``msgs`` through ``serve`` once under
+    :func:`count_syncs`, then under ``torch.profiler``: a tick's span,
+    its CUDA kernels (``sorted_moments``'s two passes apart, by name) and
+    the device's busy share of the span.  On the compiled route the
+    kernels are a replayed graph's."""
     from dcarl_tpu_torch.utils import profiling as PR
 
-    syncs = count_syncs(sess, msgs)
+    syncs = count_syncs(serve, msgs)
     trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "build", "chip_smoke_agent_trace")
     shutil.rmtree(trace_dir, ignore_errors=True)
@@ -2945,7 +3000,7 @@ def agent_tick_profile(sess, msgs: list) -> dict:
     with PR.trace(trace_dir):
         for m in msgs:
             with PR.annotate("agent_tick"):
-                sess.decide(m)
+                serve(m)
         sync("cuda")
     files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
     with open(os.path.join(trace_dir, files[0])) as f:
@@ -2961,19 +3016,23 @@ def agent_tick_profile(sess, msgs: list) -> dict:
         fail(f"bridge: the tick trace holds {len(kernels)} kernel events and "
              f"{len(spans)} tick spans for {n} ticks")
     busy = sum(ev["dur"] for ev in kernels)
+    passes = {p: sum(p in ev.get("name", "") for ev in kernels) / n
+              for p in GRAPH_KERNEL_NAMES["sorted_moments"]}
     return dict(ticks=n, **syncs,
                 span_ms_mean=float(np.mean(spans)) / 1e3,
                 kernel_events_per_tick=len(kernels) / n,
                 kernel_ms_per_tick=busy / n / 1e3,
                 sorted_kernel_events_per_tick=len(band) / n,
+                sorted_passes_per_tick=passes,
                 sorted_kernel_ms_per_tick=sum(band) / n / 1e3,
                 cpu_ops_per_tick=len(ops) / n,
                 device_busy_share=busy / sum(spans))
 
 
 def recorded_losses(sess) -> list:
-    """Each of ``sess``'s tick losses, appended as the tick returns it (a
-    device scalar: the recording reads nothing back)."""
+    """Each of ``sess``'s eager tick losses, appended as the tick returns
+    it (a device scalar: the recording reads nothing back).  A replayed
+    tick calls no Python: record on ``decide_eager``."""
     losses, tick = [], sess._tick
 
     def recorded(*args):
@@ -2985,21 +3044,52 @@ def recorded_losses(sess) -> list:
     return losses
 
 
+def agent_state(sess):
+    """A session's state after its ticks: every tensor a tick updates in
+    place (store, n-step window, replay, frame, previous (obs, action),
+    weights, target weights, Adam's state), its generator's state and
+    its host counters."""
+    return (sess.state_tensors(), sess.generator.get_state(),
+            (sess.frame, sess.replay_rows, sess.has_prev, sess.ticks,
+             sess.episodes))
+
+
+def agent_bit_equal(compiled, eager, what: str) -> int:
+    """Fail unless the compiled session's state equals the eager one's
+    bit for bit; returns the tensors compared."""
+    (ta, ga, ha), (tb, gb, hb) = agent_state(compiled), agent_state(eager)
+    if ha != hb:
+        fail(f"{what}: host counters {ha} (compiled) against {hb} (eager)")
+    if not torch.equal(ga, gb):
+        fail(f"{what}: the generator ends elsewhere than the eager tick's")
+    return bit_equal(ta, tb, what) + 1
+
+
+def agent_graphs(sess) -> dict:
+    """The session's captured variants: capture seconds and graph pool
+    bytes (one pool shared by every variant)."""
+    calls = [c for c in sess.runner._calls.values() if c.graph is not None]
+    return dict(variants=[list(c.variant) for c in calls],
+                capture_seconds=[c.capture_seconds for c in calls],
+                graph_pool_bytes=sum(c.pool_bytes for c in calls),
+                launches_per_replay=[dict(c.launches) for c in calls])
+
+
 # one training tick on the card against the CPU from the same learner
 # state: the per-tick tolerance of tests/test_torch_bridge.py
 TICK_LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
-def training_replay(dev, order: list, served: list,
-                    served_losses: list) -> dict:
+def training_replay(dev, order: list, served: list, compiled) -> dict:
     """The selftest's ticks again, in the order the served session logged
-    them, on a second card session of the served one's seed (the same
-    draws in the same order) and on a CPU session (plain route) that
-    takes, before each tick, the card session's learner state (nets,
-    Adam, replay, frame) and that tick's card draws.  The card replay's
-    actions equal the served run's and its losses are within
-    ``TICK_LOSS_TOL`` of them; the CPU's actions equal the card's, and
-    its losses are within ``TICK_LOSS_TOL`` of the card's."""
+    them, on an eager card session of the served one's seed (its draws
+    taken from its own generator before each tick: the same draws in the
+    same order) and on a CPU session (plain route) that takes, before
+    each tick, the card session's learner state (nets, Adam, replay,
+    frame) and that tick's card draws.  The card replay's actions equal
+    the served run's and its state ends bit-equal to the served
+    ``compiled`` session's; the CPU's actions equal the card's, and its
+    losses are within ``TICK_LOSS_TOL`` of the card's."""
     from dcarl_tpu_torch.bridge import agent_session as AS
     from dcarl_tpu_torch.parallel.mesh import tree_map
 
@@ -3014,22 +3104,20 @@ def training_replay(dev, order: list, served: list,
     for m in order:
         d = card.draw()
         cpu.load_state(to_cpu(card.checkpoint_state()))
-        card_a.append(card.with_draws(m, d))
+        card_a.append(card.decide_eager(m, d))
         cpu_a.append(cpu.with_draws(m, to_cpu(d)))
     seconds = time.perf_counter() - t0
     if card_a != served:
         fail("bridge selftest: the card replay's actions differ from the "
              "served run's")
+    tensors = agent_bit_equal(compiled, card, "bridge selftest: the "
+                              "compiled session against the eager replay")
     if cpu_a != card_a:
         i = next(i for i, (a, b) in enumerate(zip(cpu_a, card_a)) if a != b)
         fail(f"bridge selftest: the CPU decides {cpu_a[i]} where the card "
              f"decided {card_a[i]} (tick {i})")
     card_l = torch.stack(card_l).cpu().numpy().astype(np.float64)
     cpu_l = torch.stack(cpu_l).numpy().astype(np.float64)
-    served_l = torch.stack(served_losses).cpu().numpy().astype(np.float64)
-    if not np.allclose(card_l, served_l, **TICK_LOSS_TOL):
-        fail("bridge selftest: the card replay's losses differ from the "
-             "served run's beyond rtol 1e-5 / atol 1e-6")
     if not np.allclose(cpu_l, card_l, **TICK_LOSS_TOL):
         i = int(np.argmax(np.abs(cpu_l - card_l)))
         fail(f"bridge selftest: tick {i}'s loss is {cpu_l[i]} on the CPU and "
@@ -3042,10 +3130,7 @@ def training_replay(dev, order: list, served: list,
     rel = np.abs(cpu_l - card_l)[steps] / np.abs(card_l)[steps]
     return dict(ticks=len(order), sgd_steps=int(steps.sum()),
                 card_replay_actions_equal=True,
-                card_replay_losses_bit_equal=bool(
-                    np.array_equal(card_l, served_l)),
-                card_replay_vs_served_loss_max_abs_err=float(
-                    np.abs(card_l - served_l).max()),
+                compiled_eq_eager_tensors=tensors,
                 cpu_actions_equal=True,
                 cpu_vs_card_loss_max_abs_err=float(
                     np.abs(cpu_l - card_l).max()),
@@ -3053,36 +3138,129 @@ def training_replay(dev, order: list, served: list,
                 seconds=seconds)
 
 
+def served_selftest(sess, serve) -> dict:
+    """The ported selftest (400 ticks of the synthetic planner over TCP)
+    against ``serve``, one of ``sess``'s policies: its log, ticks/s,
+    round trips and the kernel launches by the counters."""
+    from dcarl_tpu_torch.bridge import AgentServer
+    from dcarl_tpu_torch.bridge import agent_session as AS
+    from dcarl_tpu_torch.ops import _cuda
+
+    log, errors = [], []
+    _cuda.LAUNCHES.clear()
+    sync("cuda")
+    t0 = time.perf_counter()
+    with AgentServer(guarded(serve, log, errors)) as srv:
+        out = AS.selftest(sess, srv.address[1], n_ticks=SELFTEST_TICKS)
+    sync("cuda")
+    secs = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    if errors or sess.ticks != SELFTEST_TICKS or len(log) != SELFTEST_TICKS \
+            or -1 in out["actions"]:
+        fail(f"bridge selftest: {sess.ticks} ticks and {len(log)} replies "
+             f"for {SELFTEST_TICKS} requests, errors {errors[:3]}")
+    if launches != {"sorted_moments": SELFTEST_TICKS}:
+        fail(f"bridge selftest: kernel launches {launches} != "
+             f"{SELFTEST_TICKS} ticks")
+    lat = np.asarray(out["latency_s"]) * 1e3
+    return dict(log=log, seconds=secs, ticks_per_s=SELFTEST_TICKS / secs,
+                latency_ms_p50=float(np.percentile(lat, 50)),
+                latency_ms_p99=float(np.percentile(lat, 99)),
+                latency_ms_max=float(lat.max()), launches=launches)
+
+
+def served_test_mode(card, serve, traffic: list) -> dict:
+    """Test mode: AGENT_CLIENTS concurrent planners x AGENT_MESSAGES
+    messages against ``serve``, one of ``card``'s policies: the log in
+    the order the session took the messages, ticks/s, round trips and
+    the kernel launches by the counters."""
+    import threading
+
+    from dcarl_tpu_torch.bridge import AgentServer, PlannerClient
+    from dcarl_tpu_torch.ops import _cuda
+
+    log, errors, replies, lat_ms = [], [], {}, {}
+
+    def planner(i):
+        c = PlannerClient(port=srv.address[1], timeout=60.0,
+                          fallback_action=-1)
+        replies[i], lat_ms[i] = [], []
+        for m in traffic[i]:
+            t1 = time.perf_counter()
+            replies[i].append(c.decide(m[:20], collision=m[20],
+                                       leave_mmap=m[21]))
+            lat_ms[i].append((time.perf_counter() - t1) * 1e3)
+        c.close()
+
+    _cuda.LAUNCHES.clear()
+    sync("cuda")
+    t0 = time.perf_counter()
+    with AgentServer(guarded(serve, log, errors)) as srv:
+        threads = [threading.Thread(target=planner, args=(i,))
+                   for i in range(AGENT_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    sync("cuda")
+    secs = time.perf_counter() - t0
+    n_req = AGENT_CLIENTS * AGENT_MESSAGES
+    sent = [a for i in range(AGENT_CLIENTS) for a in replies.get(i, [])]
+    if any(t.is_alive() for t in threads) or len(sent) != n_req \
+            or -1 in sent or errors or card.ticks != n_req \
+            or len(log) != n_req:
+        fail(f"bridge test mode: {card.ticks} ticks, {len(log)} logged and "
+             f"{len(sent)} replies ({sent.count(-1)} fallbacks) for {n_req} "
+             f"requests, errors {errors[:3]}")
+    launches = dict(_cuda.LAUNCHES)
+    if launches != {"sorted_moments": n_req}:
+        fail(f"bridge test mode: kernel launches {launches} != {n_req} ticks")
+    lat = np.concatenate([np.asarray(v) for v in lat_ms.values()])
+    return dict(log=log, seconds=secs, ticks_per_s=n_req / secs,
+                latency_ms_p50=float(np.percentile(lat, 50)),
+                latency_ms_p99=float(np.percentile(lat, 99)),
+                launches=launches)
+
+
 def bridge_phase(sk, _cuda, gpu: str, dev, data: AgentData) -> dict:
     """The DCARL agent (``bridge/agent_session.py``) served over TCP
     (``bridge/agent_server.py``, the port's msgpack codec) at the
-    example's widths:
+    example's widths, its tick compiled (one captured CUDA graph a
+    variant, replayed a request) and, beside it, eager:
 
     0. a cold start: a throwaway training session's first tick timed (it
-       loads the CUDA modules), then 63 ticks more, the last 16 past its
-       first SGD steps under CUDA's sync debug mode;
-    1. the ported selftest, 400 ticks of the synthetic planner, against
-       a training session on the card: ticks/s, round-trip latency, one
-       ``sorted_moments`` launch (D = 21, 8 queries) a tick; then its
-       ticks again in its logged order on the card and, from the card's
-       learner state of each tick, on the CPU (:func:`training_replay`);
+       loads the CUDA modules and warms the first variant up), then 63
+       ticks more, the last 16 past its first SGD steps, replayed, under
+       CUDA's sync debug mode;
+    1. the ported selftest, 400 ticks of the synthetic planner, against a
+       compiled and an eager training session of one seed: ticks/s,
+       round-trip latency, one ``sorted_moments`` launch (D = 21, 8
+       queries) a tick, the same replies and the same state bit for bit;
+       then its ticks again in the compiled session's logged order on an
+       eager card session (replies and state bit-equal to the compiled
+       one) and, from the card's learner state of each tick, on the CPU
+       (:func:`training_replay`); 32 ticks more of both under CUDA's
+       sync debug mode and ``torch.profiler`` (:func:`agent_tick_profile`);
     2. test mode on a full store (the agent's 2^17 rows): 4 concurrent
-       planners x 64 messages; the card's replies against a CPU session
-       (plain route) replaying the messages in the order the card
-       session took them, from the same start; a card replay of that
-       order times each launch with CUDA events; the tick's launch
-       against the plain version (counts exact, sums within rtol 1e-4 /
-       atol 1e-3) and again bit-equal; 32 ticks more under CUDA's sync
-       debug mode and ``torch.profiler`` (:func:`agent_tick_profile`).
+       planners x 64 messages, against a compiled session (its captures
+       made while the other connections wait) and an eager one; the
+       compiled session's replies against a CPU session (plain route)
+       replaying the messages in the order the session took them, from
+       the same start; an eager card replay of that order, bit-equal to
+       the compiled session, times each launch with CUDA events; the
+       tick's launch against the plain version (counts exact, sums
+       within rtol 1e-4 / atol 1e-3) and again bit-equal; 32 ticks more
+       under the sync debug mode and ``torch.profiler``, compiled and
+       eager.
 
     The clients' fallback is -1, which no policy returns, and the served
     policy records any exception: a sentinel reply, an exception, a tick
     count other than the requests sent, a launch count other than the
-    ticks, or a training or test-mode tick that waits for the card other
-    than once (the reply's action) fails the phase."""
-    import threading
-
-    from dcarl_tpu_torch.bridge import AgentServer, PlannerClient
+    ticks (on the compiled route the capture's launches times the
+    replays, held to a trace of replays: one pass of each of
+    ``sorted_moments``'s two kernels a tick), or a training or test-mode
+    tick that waits for the card other than once (the reply's action)
+    fails the phase."""
     from dcarl_tpu_torch.bridge import agent_session as AS
     from dcarl_tpu_torch.core import rls as RLS
     from dcarl_tpu_torch.core import store as ST
@@ -3090,16 +3268,28 @@ def bridge_phase(sk, _cuda, gpu: str, dev, data: AgentData) -> dict:
 
     t_phase = time.perf_counter()
 
-    def launches(n_ticks: int, what: str) -> dict:
-        got = dict(_cuda.LAUNCHES)
-        if got != {"sorted_moments": n_ticks}:
-            fail(f"bridge {what}: kernel launches {got} != {n_ticks} ticks")
-        return got
+    def one_sync(prof: dict, what: str) -> None:
+        if prof["syncs_per_tick"] != 1:
+            fail(f"bridge {what}: {prof['syncs_per_tick']} host syncs a "
+                 f"tick, at {prof['sync_sites']}")
 
-    def one_sync(syncs: dict, what: str) -> None:
-        if syncs["syncs_per_tick"] != 1:
-            fail(f"bridge {what}: {syncs['syncs_per_tick']} host syncs a "
-                 f"tick, at {syncs['sync_sites']}")
+    def one_pass_each(prof: dict, what: str) -> None:
+        if prof["sorted_passes_per_tick"] != {p: 1.0 for p in
+                                              GRAPH_KERNEL_NAMES[
+                                                  "sorted_moments"]}:
+            fail(f"bridge {what}: sorted_moments passes a traced tick "
+                 f"{prof['sorted_passes_per_tick']}")
+
+    def profiles(compiled, eager, msgs, what: str) -> dict:
+        """Both routes traced on ``msgs``; the sessions stay bit-equal."""
+        out = dict(compiled=agent_tick_profile(compiled.decide, msgs),
+                   eager=agent_tick_profile(eager.decide_eager, msgs))
+        for route, prof in out.items():
+            one_sync(prof, f"{what} ({route})")
+            one_pass_each(prof, f"{what} ({route})")
+        agent_bit_equal(compiled, eager, f"bridge {what}: after the traced "
+                        "ticks")
+        return out
 
     # 0. a cold start: a throwaway training session's first tick loads
     # the CUDA modules of every op the tick runs, which can outlast the
@@ -3117,46 +3307,40 @@ def bridge_phase(sk, _cuda, gpu: str, dev, data: AgentData) -> dict:
         warm.decide(m)
     if warm.replay_rows < warm.dcfg.batch_size:
         fail("bridge warm-up: no SGD step in 48 ticks")
-    train_syncs = count_syncs(warm, warm_msgs[48:])
+    train_syncs = count_syncs(warm.decide, warm_msgs[48:])
     one_sync(train_syncs, "training tick")
     del warm
 
-    # 1. the training selftest
+    # 1. the training selftest, compiled and eager
     sess = AS.AgentSession(seed=SEED, is_training=True, device=dev)
-    served_losses = recorded_losses(sess)
-    log, errors = [], []
-    _cuda.LAUNCHES.clear()
-    sync(dev)
-    t0 = time.perf_counter()
-    with AgentServer(guarded(sess.decide, log, errors)) as srv:
-        out = AS.selftest(sess, srv.address[1], n_ticks=SELFTEST_TICKS)
-    sync(dev)
-    self_s = time.perf_counter() - t0
-    if errors or sess.ticks != SELFTEST_TICKS or len(log) != SELFTEST_TICKS \
-            or -1 in out["actions"]:
-        fail(f"bridge selftest: {sess.ticks} ticks and {len(log)} replies "
-             f"for {SELFTEST_TICKS} requests, errors {errors[:3]}")
-    self_launches = launches(SELFTEST_TICKS, "selftest")
+    sess_e = AS.AgentSession(seed=SEED, is_training=True, device=dev)
+    served = served_selftest(sess, sess.decide)
+    served_e = served_selftest(sess_e, sess_e.decide_eager)
+    log = served.pop("log")
+    if [r for _, r in log] != [r for _, r in served_e.pop("log")]:
+        fail("bridge selftest: the compiled session's replies differ from "
+             "the eager one's")
+    tensors = agent_bit_equal(sess, sess_e, "bridge selftest: compiled "
+                              "against eager")
     NG.assert_finite(sess.checkpoint_state(), "agent DQN state")
-    lat = np.asarray(out["latency_s"]) * 1e3
     selftest = dict(
         cold_first_tick_seconds=first_tick_s,
         training_tick_syncs=train_syncs,
-        ticks=SELFTEST_TICKS, seconds=self_s,
-        ticks_per_s=SELFTEST_TICKS / self_s,
-        latency_ms_p50=float(np.percentile(lat, 50)),
-        latency_ms_p99=float(np.percentile(lat, 99)),
-        latency_ms_max=float(lat.max()), launches=self_launches,
+        ticks=SELFTEST_TICKS, **served, eager=served_e,
+        compiled_eq_eager_tensors=tensors,
         store_rows=int(sess.store.size), replay_rows=sess.replay_rows,
         frame=sess.frame, episodes=sess.episodes,
-        action_hist=np.bincount(out["actions"],
+        action_hist=np.bincount([r for _, r in log],
                                 minlength=AS.NUM_ACTIONS).tolist(),
-        nan_guard_finite=True)
-    del sess
+        graphs=agent_graphs(sess), nan_guard_finite=True)
     selftest["replay"] = training_replay(
-        dev, [m for m, _ in log], [r for _, r in log], served_losses)
+        dev, [m for m, _ in log], [r for _, r in log], sess)
+    selftest["tick_profile"] = profiles(
+        sess, sess_e, agent_traffic(np.random.default_rng(SEED + 64),
+                                    data.anchors, 32), "training tick")
+    del sess, sess_e
 
-    # 2. test mode on the full store
+    # 2. test mode on the full store, compiled and eager
     def fresh(device):
         s = AS.AgentSession(seed=SEED + 1, is_training=False, device=device)
         if s.store.keys.shape[0] != data.keys.shape[0]:
@@ -3168,40 +3352,11 @@ def bridge_phase(sk, _cuda, gpu: str, dev, data: AgentData) -> dict:
     traffic = [agent_traffic(rng, data.anchors, AGENT_MESSAGES)
                for _ in range(AGENT_CLIENTS)]
     card = fresh(dev)
-    log, errors, replies, lat_ms = [], [], {}, {}
-
-    def planner(i):
-        c = PlannerClient(port=srv.address[1], timeout=60.0,
-                          fallback_action=-1)
-        replies[i], lat_ms[i] = [], []
-        for m in traffic[i]:
-            t1 = time.perf_counter()
-            replies[i].append(c.decide(m[:20], collision=m[20],
-                                       leave_mmap=m[21]))
-            lat_ms[i].append((time.perf_counter() - t1) * 1e3)
-        c.close()
-
-    _cuda.LAUNCHES.clear()
-    sync(dev)
-    t0 = time.perf_counter()
-    with AgentServer(guarded(card.decide, log, errors)) as srv:
-        threads = [threading.Thread(target=planner, args=(i,))
-                   for i in range(AGENT_CLIENTS)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-    sync(dev)
-    serve_s = time.perf_counter() - t0
-    n_req = AGENT_CLIENTS * AGENT_MESSAGES
-    sent = [a for i in range(AGENT_CLIENTS) for a in replies.get(i, [])]
-    if any(t.is_alive() for t in threads) or len(sent) != n_req \
-            or -1 in sent or errors or card.ticks != n_req \
-            or len(log) != n_req:
-        fail(f"bridge test mode: {card.ticks} ticks, {len(log)} logged and "
-             f"{len(sent)} replies ({sent.count(-1)} fallbacks) for {n_req} "
-             f"requests, errors {errors[:3]}")
-    serve_launches = launches(n_req, "test mode")
+    serve = served_test_mode(card, card.decide, traffic)
+    card_e = fresh(dev)
+    serve_e = served_test_mode(card_e, card_e.decide_eager, traffic)
+    serve_e.pop("log")
+    log = serve.pop("log")
     order = [m for m, _ in log]
     want = [r for _, r in log]
 
@@ -3219,14 +3374,15 @@ def bridge_phase(sk, _cuda, gpu: str, dev, data: AgentData) -> dict:
                         sorted_probe(sk, _cuda)):
         sync(dev)
         t0 = time.perf_counter()
-        got = [again.decide(m) for m in order]
+        got = [again.decide_eager(m) for m in order]
         sync(dev)
         replay_s = time.perf_counter() - t0
     if got != want:
-        fail("bridge test mode: the card replay differs from the served run")
+        fail("bridge test mode: the eager card replay differs from the "
+             "served compiled run")
+    test_tensors = agent_bit_equal(card, again, "bridge test mode: compiled "
+                                   "against the eager replay")
     summ = summarize(record)
-    summ["tick_profile"] = agent_tick_profile(again, order[:32])
-    one_sync(summ["tick_profile"], "test-mode tick")
 
     # the tick's launch against the plain version, on the final store
     obs = torch.tensor(order[-1][:20], dtype=torch.float32, device=dev)
@@ -3244,27 +3400,34 @@ def bridge_phase(sk, _cuda, gpu: str, dev, data: AgentData) -> dict:
     plain_ms = cuda_ms(lambda: sk.sorted_moments_plain(ops))
     wrapper_ms = cuda_ms(lambda: sk.box_query_moments_sorted(
         card.store.keys, card.store.values, valid, keys, card.half_widths))
-    lat = np.concatenate([np.asarray(v) for v in lat_ms.values()])
+    test_graphs = agent_graphs(card)
+    summ["tick_profile"] = profiles(card, again, order[:32], "test-mode tick")
     emit("bridge", selftest=selftest,
          test_mode=dict(
              clients=AGENT_CLIENTS, messages_per_client=AGENT_MESSAGES,
-             requests=n_req, store_rows=int(card.store.size),
-             seconds=serve_s, ticks_per_s=n_req / serve_s,
-             latency_ms_p50=float(np.percentile(lat, 50)),
-             latency_ms_p99=float(np.percentile(lat, 99)),
-             launches=serve_launches,
+             requests=len(order), store_rows=int(card.store.size),
+             **serve, eager=serve_e,
              gated_share=float(np.mean(np.asarray(want) > 0)),
              action_hist=np.bincount(want, minlength=AS.NUM_ACTIONS).tolist(),
              cpu_replay_equal=True, cpu_replay_seconds=cpu_s,
-             card_replay_ticks_per_s=n_req / replay_s),
+             card_eager_replay_ticks_per_s=len(order) / replay_s,
+             compiled_eq_eager_tensors=test_tensors, graphs=test_graphs),
          tick_launch=dict(queries=int(keys.shape[0]), key_dim=21,
                           rows=int(valid.sum()), max_abs_err=err,
                           matches=int(out[:, 0].sum()), bit_equal_repeat=True,
                           kernel_ms=kernel_ms, plain_ms=plain_ms,
                           wrapper_ms=wrapper_ms, band_dim_w=float(ops.w0)),
+         launches_counted_as="capture x replays, traced",
          **summ, seconds=time.perf_counter() - t_phase, gpu=gpu)
-    return dict(launches=serve_launches["sorted_moments"],
-                selftest_launches=self_launches["sorted_moments"],
+    for label, run, eager in (("selftest", selftest, served_e),
+                              ("test mode", serve, serve_e)):
+        print(f"agent {label}: {run['ticks_per_s']:.6g} ticks/s compiled "
+              f"(round trip p50 {run['latency_ms_p50']:.4g} ms, p99 "
+              f"{run['latency_ms_p99']:.4g} ms), {eager['ticks_per_s']:.6g} "
+              f"eager (p50 {eager['latency_ms_p50']:.4g} ms, p99 "
+              f"{eager['latency_ms_p99']:.4g} ms) ({gpu})", flush=True)
+    return dict(launches=serve["launches"]["sorted_moments"],
+                selftest_launches=served["launches"]["sorted_moments"],
                 max_abs_err=err, ms=summ["kernel_ms_mean"],
                 plain_ms=plain_ms, wrapper_ms=wrapper_ms,
                 bound_ms=summ["bound_ms_mean"], bound_by=summ["bound_by"])
@@ -3765,9 +3928,10 @@ def main(argv=None) -> int:
         only = set(argv[1].split(",")) if len(argv) == 2 \
             and argv[0] == "--only" else None
         if not only or not only <= {"lane", "field", "vec", "algos", "host",
-                                    "bridge", "entry", "graphs"}:
+                                    "bridge", "entry", "graphs",
+                                    "trustset"}:
             print("usage: chip_smoke.py [--only "
-                  "graphs,lane,field,algos,vec,host,bridge,entry]",
+                  "graphs,trustset,lane,field,algos,vec,host,bridge,entry]",
                   file=sys.stderr)
             return 2
     if not torch.cuda.is_available():
@@ -3819,6 +3983,8 @@ def main(argv=None) -> int:
     if only:
         if "graphs" in only:
             graphs_phase(_cuda, gpu, dev)
+        if "trustset" in only:
+            trustset_phase(store_kernels, _cuda, gpu)
         if "lane" in only:
             lane_phase(store_kernels, _cuda, gpu, dev)
         if "field" in only:
@@ -4360,7 +4526,8 @@ def main(argv=None) -> int:
 
     # --- the trust-set DQN trainer, the fleet's trust-set queries, the
     # golden confidence core
-    for err in trustset_phase(sk, _cuda, gpu):
+    trustset = trustset_phase(sk, _cuda, gpu)
+    for err in trustset["errs"]:
         note_err("sorted_moments", err)
 
     # --- the readable batch-first drivers against the lane-major ones
@@ -4423,6 +4590,10 @@ def main(argv=None) -> int:
          # own path: the served test-mode run's launches
          "agent_tick_launches": agent["launches"],
          "agent_selftest_launches": agent["selftest_launches"],
+         "agent_tick_launches_counted_as": "capture x replays, traced",
+         # the trust-set trainer's compiled rerun (400 trained steps)
+         "trustset_launches": trustset["launches"],
+         "trustset_launches_counted_as": "capture x replays, traced",
          "agent_tick_ms": agent["ms"],
          "agent_tick_wrapper_ms": agent["wrapper_ms"],
          "agent_tick_max_abs_err": agent["max_abs_err"],

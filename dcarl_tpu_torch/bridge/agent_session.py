@@ -26,6 +26,16 @@ reads one value back: the reply's action.  Random draws come from the
 session's ``torch.Generator``; :meth:`AgentSession.with_draws` takes
 them from the caller instead (the test mode draws nothing).
 
+On a CUDA device a tick is compiled, as JAX's ``jax.jit(tick)``: the
+session's state (store, n-step window, replay, frame, previous (obs,
+action), the learner's weights and Adam state) is updated in place and
+is the static state of one captured CUDA graph for each variant the host
+counters pick (train or not, target sync or not, the session's draws or
+the caller's; ``utils/graphs.CallRunner``).  A request copies its floats
+in and replays the graph.  On the CPU the tick runs eagerly;
+:meth:`AgentSession.decide_eager` runs the eager tick on any device,
+the reference a replayed tick is held to bit for bit.
+
     python -m dcarl_tpu_torch.bridge.agent_session --selftest
 
 runs the full loop with an in-process synthetic planner (no ROS needed):
@@ -48,11 +58,12 @@ from dcarl_tpu_torch.config import DQNConfig, StoreConfig
 from dcarl_tpu_torch.core import rls
 from dcarl_tpu_torch.core import store as cstore
 from dcarl_tpu_torch.device import disable_tf32, resolve_device
+from dcarl_tpu_torch.models import dqn as DQ
 from dcarl_tpu_torch.models import replay as RB
-from dcarl_tpu_torch.models.dqn import DQN
 from dcarl_tpu_torch.models.networks import MLPQNet
 from dcarl_tpu_torch.train_fast import TrainDraws, make_draws
 from dcarl_tpu_torch.utils import checkpoint as ckpt
+from dcarl_tpu_torch.utils import graphs
 from dcarl_tpu_torch.utils.logging import MetricsLogger
 
 OBS_DIM = 20
@@ -81,15 +92,10 @@ class AgentSession:
         self.is_training = is_training
         net = MLPQNet(NUM_ACTIONS, OBS_DIM,
                       generator=torch.Generator().manual_seed(seed))
-        self.dqn = DQN(net.to(dev), self.dcfg)
-        # Adam's per-parameter state from the start (step 0, zero
-        # moments: what torch.optim.Adam makes at its first step), so a
-        # checkpoint always holds it
-        for p in self.dqn.net.parameters():
-            self.dqn.optimizer.state[p] = {
-                "step": torch.zeros((), dtype=torch.float32),
-                "exp_avg": torch.zeros_like(p),
-                "exp_avg_sq": torch.zeros_like(p)}
+        # capturable Adam on the card, compiled or not: both routes give
+        # the same bits (torch takes it on CUDA tensors only)
+        self.dqn = DQ.DQN(net.to(dev), self.dcfg,
+                          capturable=dev.type == "cuda")
         self.half_widths = torch.tensor(half_widths, dtype=torch.float32,
                                         device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
@@ -97,28 +103,52 @@ class AgentSession:
                                        device=dev)
         self.traj = rls.traj_buffer_init(self.scfg.n_step_window, OBS_DIM,
                                          device=dev)
-        self.set_learner_state(RB.replay_init(self.dcfg.replay_capacity,
-                                              OBS_DIM, device=dev), 0)
-        self.prev = None  # (obs, action) of the previous tick, on the device
+        self.replay = RB.replay_init(self.dcfg.replay_capacity, OBS_DIM,
+                                     device=dev)
+        self._frame_t = torch.zeros((), dtype=torch.int32, device=dev)
+        # the previous tick's (obs, action), read by a tick whose has_prev
+        # flag is set (none after an episode's end)
+        self.prev_obs = torch.zeros(OBS_DIM, device=dev)
+        self.prev_action = torch.zeros((), dtype=torch.int32, device=dev)
+        self.has_prev = False
+        self.frame = 0
+        self.replay_rows = 0
         self.lock = threading.Lock()
         self.logger = MetricsLogger()
         self.ticks = 0
         self.episodes = 0
         self.ckpt_path = ckpt_path
         self._sync = torch.ones((), dtype=torch.bool, device=dev)
+        self.runner = graphs.CallRunner(self._tick, dev.type == "cuda",
+                                        state=self.state_tensors)
         if ckpt_path and os.path.exists(ckpt_path):
             self.load_checkpoint(ckpt_path)
             print(f"loaded model from {ckpt_path}")
 
     # ------------------------------------------------------------------
+    def _carried(self) -> list:
+        """The tensors a tick writes its new values into, in place."""
+        return graphs.tensors_of((self.store, self.traj, self.replay,
+                                  self._frame_t, self.prev_obs,
+                                  self.prev_action))
+
+    def state_tensors(self) -> list:
+        """Every tensor a tick updates in place: what :meth:`_carried`
+        names, and the learner's weights and Adam state (the compiled
+        tick's static state)."""
+        return self._carried() + self.dqn.state_tensors()
+
     def set_learner_state(self, replay: RB.Replay, frame: int) -> None:
-        """Take ``replay`` and the frame counter; the host counters that
-        decide training follow them (one read of ``replay.size``)."""
-        self.replay = replay
+        """Copy ``replay`` and the frame counter in; the host counters
+        that decide training follow them (one read of ``replay.size``)."""
+        for name, dst, src in zip(RB.Replay._fields, self.replay, replay):
+            if dst.shape != src.shape:
+                raise ValueError(f"replay.{name}: {tuple(src.shape)} given, "
+                                 f"the session holds {tuple(dst.shape)}")
+            dst.copy_(src)
         self.frame = int(frame)
         self.replay_rows = int(replay.size)
-        self._frame_t = torch.full((), self.frame, dtype=torch.int32,
-                                   device=self.device)
+        self._frame_t.fill_(self.frame)
 
     def checkpoint_state(self) -> dict:
         """What the JAX example checkpoints (its ``DQNState``): online and
@@ -137,12 +167,14 @@ class AgentSession:
         self.load_state(ckpt.load_npz(path, self.checkpoint_state()))
 
     def load_state(self, saved: dict) -> None:
-        """Take a learner state in :meth:`checkpoint_state`'s layout (its
-        tensors become the session's own)."""
+        """Copy a learner state in :meth:`checkpoint_state`'s layout into
+        the session's tensors (a compiled tick goes on using them)."""
         self.dqn.net.load_state_dict(saved["net"])
         self.dqn.target_net.load_state_dict(saved["target"])
         for name, p in self.dqn.net.named_parameters():
-            self.dqn.optimizer.state[p] = saved["adam"][name]
+            held = self.dqn.optimizer.state[p]
+            for k, v in saved["adam"][name].items():
+                held[k].copy_(v)
         self.set_learner_state(saved["replay"], int(saved["frame"]))
 
     # ------------------------------------------------------------------
@@ -150,8 +182,11 @@ class AgentSession:
         """One training tick's draws from the session's generator: the
         epsilon uniform and random action, the gate's explore uniform,
         the replay sample's Gumbel noise."""
-        return make_draws(self.generator, 1, NUM_ACTIONS, self.scfg,
-                          self.dcfg, self.dcfg.replay_capacity, self.device)
+        return self._draw(self.generator)
+
+    def _draw(self, generator: torch.Generator) -> TrainDraws:
+        return make_draws(generator, 1, NUM_ACTIONS, self.scfg, self.dcfg,
+                          self.dcfg.replay_capacity, self.device)
 
     def decide(self, msg) -> int:
         """Bridge policy callback: msg = 20-D state + [collision,
@@ -161,25 +196,45 @@ class AgentSession:
     def with_draws(self, msg, draws: Optional[TrainDraws]) -> int:
         """:meth:`decide` on the caller's ``draws`` (None: the session
         draws them itself, under the lock, in the order of arrival)."""
+        return self._serve(msg, draws, eager=False)
+
+    def decide_eager(self, msg, draws: Optional[TrainDraws] = None) -> int:
+        """:meth:`with_draws` through the eager tick, on any device: the
+        reference of the compiled tick, and its route on the CPU."""
+        return self._serve(msg, draws, eager=True)
+
+    def _serve(self, msg, draws: Optional[TrainDraws], eager: bool) -> int:
         if len(msg) < OBS_DIM + 1:
             raise ValueError(f"a planner message holds {OBS_DIM} state "
                              f"floats and the collision flag; got {len(msg)}")
-        head = torch.tensor([float(x) for x in msg[:OBS_DIM + 1]],
-                            dtype=torch.float32)
-        # the collision flag as the JAX tick sees it, in float32
-        done = bool(head[OBS_DIM] > 0)
+        floats = [float(x) for x in msg[:OBS_DIM + 1]]
         leave = float(msg[OBS_DIM + 1]) > 0 if len(msg) > OBS_DIM + 1 \
             else False
-        if self.device.type == "cuda":
-            # through a pinned block, so the copy waits for nothing
-            head = head.pin_memory().to(self.device, non_blocking=True)
+        compiled = self.runner.compiled and not eager
         with self.lock:
-            if draws is None and self.is_training:
-                draws = self.draw()
-            obs = head[:OBS_DIM]
-            action, loss = self._tick(obs, head[OBS_DIM], draws)
+            head = torch.tensor(floats + [float(self.has_prev)],
+                                dtype=torch.float32)
+            # the collision flag as the JAX tick sees it, in float32
+            done = bool(head[OBS_DIM] > 0)
+            if self.device.type == "cuda":
+                # through a pinned block, so the copy waits for nothing;
+                # under the lock, so that no thread issues it while
+                # another captures a tick
+                head = head.pin_memory()
+                if not compiled:
+                    head = head.to(self.device, non_blocking=True)
+            if self.has_prev:
+                self.replay_rows = min(self.replay_rows + 1,
+                                       self.dcfg.replay_capacity)
+            self.frame += 1
+            # what the JAX tick's two lax.cond read, from the host counters
+            variant = (self.is_training
+                       and self.replay_rows >= self.dcfg.batch_size,
+                       self.frame % self.dcfg.target_update_every == 0)
+            tick = self.runner if compiled else self._tick
+            action, loss = tick(variant, (head, draws), self.generator)
             a = int(action)
-            self.prev = None if (done or leave) else (obs, action)
+            self.has_prev = not (done or leave)
             self.ticks += 1
             if done or leave:
                 self.episodes += 1
@@ -193,41 +248,44 @@ class AgentSession:
                 self.logger.dumpkvs()
         return a
 
-    def _tick(self, obs: torch.Tensor, collision: torch.Tensor,
-              draws: Optional[TrainDraws]):
-        """One tick (run_agent_server.py:79-122) on the device's state
-        and collision flag.  Returns (action, loss) as device scalars.
-        Test mode skips the epsilon-greedy proposal, which the JAX tick
-        computes and discards."""
+    def _tick(self, variant, inputs, generator: torch.Generator):
+        """One tick (run_agent_server.py:79-122), its new state written
+        into the session's tensors.  ``variant`` is (train, target sync);
+        ``inputs`` is (head, draws): head [22] f32 holds the state, the
+        collision flag and the has_prev flag, and ``draws`` None draws
+        from ``generator`` in training (test mode draws nothing).  Returns
+        (action, loss) as device scalars.  Test mode skips the
+        epsilon-greedy proposal, which the JAX tick computes and
+        discards."""
+        train, sync = variant
+        head, draws = inputs
         dev, scfg = self.device, self.scfg
-        has_prev = self.prev is not None
+        obs, collision = head[:OBS_DIM], head[OBS_DIM]
+        has_prev = head[OBS_DIM + 1] > 0
+        if draws is None and self.is_training:
+            draws = self._draw(generator)
         with torch.no_grad():
             # reward for the PREVIOUS action (zzz.py:69-77 semantics)
             reward = torch.where(collision > 0, 0.0, 1.0)
             done_t = collision > 0
-            if has_prev:
-                prev_obs, prev_action = self.prev
-            else:
-                prev_obs = torch.zeros(OBS_DIM, device=dev)
-                prev_action = torch.zeros((), dtype=torch.int32, device=dev)
+            # zeros without a previous tick, as the JAX example passes
+            prev_obs = torch.where(has_prev, self.prev_obs, 0.0)
+            prev_action = torch.where(has_prev, self.prev_action, 0)
 
             # record the executed action in both datasets (dqn.py:226-236)
-            self.traj, recs = rls.traj_buffer_push(
+            traj, recs = rls.traj_buffer_push(
                 self.traj, prev_obs, prev_action.to(torch.float32), reward,
                 done_t, scfg)
             recs = recs._replace(valid=recs.valid & has_prev)
-            self.store = rls.insert_records(self.store, recs)
-            self.replay = RB.replay_push(
+            store = rls.insert_records(self.store, recs)
+            replay = RB.replay_push(
                 self.replay, prev_obs[None], prev_action[None],
                 reward[None], obs[None], done_t.to(torch.float32)[None],
-                mask=torch.full((1,), has_prev, device=dev))
-            if has_prev:
-                self.replay_rows = min(self.replay_rows + 1,
-                                       self.dcfg.replay_capacity)
+                mask=has_prev.reshape(1))
 
             # decide: eps-greedy proposal filtered by confidence gating
-            stats = rls.all_action_stats(self.store, obs[None],
-                                         self.half_widths, NUM_ACTIONS)
+            stats = rls.all_action_stats(store, obs[None], self.half_widths,
+                                         NUM_ACTIONS)
             if self.is_training:
                 proposal = self.dqn.act_epsilon_greedy(
                     obs[None], self._frame_t, draws.eps_uniform,
@@ -238,15 +296,16 @@ class AgentSession:
                 action = rls.act_test(stats, scfg)[0]
 
         # learn once the replay has a batch
-        if self.is_training and self.replay_rows >= self.dcfg.batch_size:
-            self.replay, self._frame_t, loss = self.dqn.train_step(
-                self.replay, self._frame_t, draws.gumbel)
+        if train:
+            replay, frame, loss = self.dqn.train_step(replay, self._frame_t,
+                                                      draws.gumbel)
         else:
-            self._frame_t = self._frame_t + 1
+            frame = self._frame_t + 1
             loss = torch.zeros((), device=dev)
-        self.frame += 1
-        if self.frame % self.dcfg.target_update_every == 0:
+        if sync:
             self.dqn.update_target(self._sync)
+        graphs.write_back(self._carried(), graphs.tensors_of(
+            (store, traj, replay, frame, obs, action)))
         return action, loss
 
 

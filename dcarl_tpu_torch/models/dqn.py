@@ -14,12 +14,14 @@ as tensors, so a caller can feed both packages the same draws.
 ``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) and
 ``torch.optim.Adam(lr)`` apply the same update up to rounding: optax
 divides the bias-corrected moments, torch folds the corrections into
-the step size and the denominator.  ``capturable=True`` (CUDA only, for
-a step captured in a CUDA graph) keeps Adam's state on the device from
-the start and computes the corrections there.  Its step count is kept
-in float64: in float32, ``1 - 0.999 ** t`` loses 1.3e-5 of itself to
-cancellation at t = 1, and the trainer's TD residuals then leave their
-tolerance against optax (``tests/test_torch_graphs.py``).
+the step size and the denominator.  A learner makes Adam's state when
+it is built (zero moments, a float64 step count), so a checkpoint always
+holds it.  ``capturable=True`` (CUDA only, for a step captured in a CUDA
+graph) keeps that state on the device, the step count too, and computes
+the corrections there.  The step count is float64 because in float32,
+``1 - 0.999 ** t`` loses 1.3e-5 of itself to cancellation at t = 1, and
+the trainer's TD residuals then leave their tolerance against optax
+(``tests/test_torch_graphs.py``).
 """
 
 from __future__ import annotations
@@ -70,16 +72,19 @@ class DQN:
         self._start_adam()
 
     def _start_adam(self) -> None:
-        """Adam afresh.  A capturable Adam gets its state now, as torch
-        makes it at a first step but with a float64 step count."""
+        """Adam afresh, its state made now (as torch makes it at a first
+        step, but with a float64 step count), so a checkpoint always
+        holds it and a captured step finds it.  The step count lies on
+        the parameter's device where Adam is capturable, else on the
+        host, where torch reads it as a number."""
         self.optimizer.state.clear()
-        if self.optimizer.defaults["capturable"]:
-            for p in self.net.parameters():
-                self.optimizer.state[p] = {
-                    "step": torch.zeros((), dtype=torch.float64,
-                                        device=p.device),
-                    "exp_avg": torch.zeros_like(p),
-                    "exp_avg_sq": torch.zeros_like(p)}
+        capturable = self.optimizer.defaults["capturable"]
+        for p in self.net.parameters():
+            self.optimizer.state[p] = {
+                "step": torch.zeros((), dtype=torch.float64,
+                                    device=p.device if capturable else "cpu"),
+                "exp_avg": torch.zeros_like(p),
+                "exp_avg_sq": torch.zeros_like(p)}
 
     def reset(self, network: nn.Module) -> None:
         """Take ``network``'s weights as online and target weights and
@@ -87,6 +92,15 @@ class DQN:
         self.net.load_state_dict(network.state_dict())
         self.target_net.load_state_dict(network.state_dict())
         self._start_adam()
+
+    def state_tensors(self) -> list:
+        """What a training step updates in place: the weights, the target
+        weights and Adam's state (a captured step's static state)."""
+        opt_state = self.optimizer.state
+        return [*self.net.parameters(), *self.target_net.parameters(),
+                *(v for p in self.net.parameters()
+                  for v in opt_state.get(p, {}).values()
+                  if isinstance(v, torch.Tensor))]
 
     def state_dict(self) -> dict:
         """Copies of the online and target weights and Adam's state."""

@@ -46,6 +46,7 @@ from dcarl_tpu_torch.models import replay as RB
 from dcarl_tpu_torch.models import trustset as TS
 from dcarl_tpu_torch.models.networks import AttentionQNet
 from dcarl_tpu_torch.planning import fast_rollout as FR
+from dcarl_tpu_torch.utils import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,15 +238,21 @@ def make_trustset_trainer(
       run_fn.draw(generator)           -> the draws ``run_fn`` uses
       run_fn.learner                   -> the ``DQN`` (weights and Adam,
                                           changed in place)
+      run_fn.runner                    -> the ``graphs.TickRunner`` of the
+                                          warm-free steps
 
     The metrics have the JAX trainer's keys (:data:`METRIC_KEYS`).  The
     reference trains only once the replay can fill a batch (dqn.py:405);
     the JAX trainer computes the update and discards it until then, the
     port skips it: while ``carry.warm`` each step reads the replay's size
     back to the host (one wait on the device), and from the first full
-    batch on none.  ``use_kernel`` (None = on CUDA) picks the trust-set
-    query route (``trustset.py``).  ``device=None`` runs on ``cuda``
-    (which must exist)."""
+    batch on none.  ``run_fn`` runs the warm steps eagerly and the rest
+    through ``run_fn.runner``: on CUDA one captured CUDA graph replayed a
+    step (as JAX jits its ``lax.scan`` of steps), elsewhere the eager
+    loop, ``graphs.run_loop(run_fn.runner.tick, ...)``, the same bits;
+    the learner's Adam is ``capturable`` on CUDA.  ``use_kernel`` (None =
+    on CUDA) picks the trust-set query route (``trustset.py``).
+    ``device=None`` runs on ``cuda`` (which must exist)."""
     env_cfg = env_cfg or EnvConfig()
     wcfg = wcfg or WerlingConfig()
     dq = dqn_cfg or DQNConfig()
@@ -263,7 +270,9 @@ def make_trustset_trainer(
                              generator=torch.Generator().manual_seed(seed)
                              ).to(device)
 
-    learner = DQ.DQN(make_net(0), cfg=dq)
+    # capturable Adam on the card, graphed or not: both routes give the
+    # same bits (torch takes it on CUDA tensors only)
+    learner = DQ.DQN(make_net(0), cfg=dq, capturable=device.type == "cuda")
 
     def init_fn(seed: int = 0) -> TrustsetCarry:
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -346,16 +355,30 @@ def make_trustset_trainer(
     def step(carry: TrustsetCarry, generator: torch.Generator):
         return with_draws(carry, draw(generator), generator)
 
+    runner = graphs.TickRunner(
+        lambda carry, _inputs, generator: step(carry, generator),
+        device.type == "cuda", state=learner.state_tensors)
+
     def run_fn(carry: TrustsetCarry, generator: torch.Generator,
                n_steps: int = 16):
+        # warm steps eagerly (each reads the replay's size back); from the
+        # first warm-free step on, the runner (``warm`` is a constant of
+        # its carry)
         ms = []
-        for _ in range(n_steps):
+        while carry.warm and len(ms) < n_steps:
             carry, m = step(carry, generator)
             ms.append(m)
-        return carry, {k: torch.stack([m[k] for m in ms]) for k in METRIC_KEYS}
+        parts = [{k: torch.stack([m[k] for m in ms]) for k in METRIC_KEYS}
+                 ] if ms else []
+        if len(ms) < n_steps:
+            carry, rest = runner(carry, (), n_steps - len(ms), generator)
+            parts.append(rest)
+        return carry, {k: torch.cat([p[k] for p in parts])
+                       for k in METRIC_KEYS}
 
     run_fn.step = step
     run_fn.with_draws = with_draws
     run_fn.draw = draw
     run_fn.learner = learner
+    run_fn.runner = runner
     return init_fn, run_fn

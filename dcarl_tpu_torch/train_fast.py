@@ -407,17 +407,8 @@ def make_trainer_fast(
     def tick(state: FastTrainState, _inputs, generator: torch.Generator):
         return step_fn(state, generator)
 
-    def learner_tensors():
-        """What a step updates in place: the weights, the target weights
-        and Adam's state."""
-        opt_state = learner.optimizer.state
-        return [*learner.net.parameters(), *learner.target_net.parameters(),
-                *(v for p in learner.net.parameters()
-                  for v in opt_state.get(p, {}).values()
-                  if isinstance(v, torch.Tensor))]
-
     runner = graphs.TickRunner(tick, device.type == "cuda" and mesh is None,
-                               state=learner_tensors)
+                               state=learner.state_tensors)
 
     def run_fn_factory(n_steps: int):
         """A runner of ``n_steps`` training steps (the metrics come back

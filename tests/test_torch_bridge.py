@@ -13,8 +13,10 @@ package's.
   32), both starting from the JAX session's state (``interop``): in test
   mode 64 ticks with bit-equal actions and equal store and replay; in
   training mode 48 ticks on JAX's own draws with equal actions and
-  losses.  JAX runs with 64-bit mode off, the float32 it was written
-  for.
+  losses, on the eager tick and on the static-buffer route of the
+  compiled one (``tests/test_torch_agent_graphs.py``), with the host's
+  Adam and the card's.  JAX runs with 64-bit mode off, the float32 it
+  was written for.
 """
 
 import importlib.util
@@ -43,6 +45,7 @@ from dcarl_tpu_torch.config import DQNConfig, StoreConfig
 from dcarl_tpu_torch.core.store import ConfidenceStore
 from dcarl_tpu_torch.models import replay as RB
 from dcarl_tpu_torch.train_fast import TrainDraws
+from dcarl_tpu_torch.utils import graphs
 
 from torch_algos_jax import one_torch_thread  # noqa: F401 (fixture)
 
@@ -452,6 +455,62 @@ def test_session_training_mode_matches_jax_on_its_draws(jax_train_mode):
     state = run["end"][0]
     for lin, name in zip(sess.dqn.net.dense, ("Dense_0", "Dense_1",
                                              "Dense_2")):
+        np.testing.assert_allclose(
+            lin.weight.detach().numpy(),
+            np.asarray(state.params["params"][name]["kernel"]).T,
+            rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("adam", ["host", "capturable"])
+def test_session_static_route_matches_eager_and_jax(jax_train_mode,
+                                                    monkeypatch, adam):
+    """JAX's 48 ticks on JAX's draws (the caller's-draws variant), through
+    the first SGD steps.  The static route from JAX's learner state of
+    each tick: JAX's actions, losses within rtol 1e-5 / atol 1e-6.  Run
+    freely from the start state, the static route equals the eager tick
+    bit for bit and both agree with JAX as
+    ``test_session_training_mode_matches_jax_on_its_draws`` holds the eager
+    tick.  ``capturable``: the card's Adam (capturable, its step count in
+    float64), as ``test_capturable_adam_trainer_against_jax`` sets it up."""
+    from test_torch_agent_graphs import (_assert_sessions_equal, _losses,
+                                         _static, static_call)
+    from test_torch_graphs import _card_adam
+
+    monkeypatch.setattr(graphs.CallRunner, "__call__", static_call)
+    if adam == "capturable":
+        _card_adam(monkeypatch)
+    run = jax_train_mode
+    draws = [_jax_draws(k, *run["cfg"]) for k in run["keys"]]
+
+    sess = _static(_port_session(run["start"], is_training=True))
+    assert sess.dqn.optimizer.defaults["capturable"] == (adam == "capturable")
+    losses = _losses(sess)
+    actions = []
+    for m, d, st in zip(run["traffic"], draws, run["states"]):
+        _carry_learner(sess, st)
+        actions.append(sess.with_draws(m, d))
+    assert actions == run["actions"]
+    np.testing.assert_allclose(losses, run["losses"], rtol=1e-5, atol=1e-6)
+
+    routes = []
+    for static in (True, False):
+        sess = _port_session(run["start"], is_training=True)
+        if static:
+            _static(sess)
+        losses = _losses(sess)
+        actions = [sess.with_draws(m, d) for m, d in zip(run["traffic"],
+                                                         draws)]
+        routes.append((sess, actions, losses))
+    (s_sess, s_act, s_loss), (e_sess, e_act, e_loss) = routes
+    assert s_act == e_act == run["actions"] and s_loss == e_loss
+    _assert_sessions_equal(s_sess, e_sess, "static route against eager")
+    assert s_sess.episodes == run["episodes"] > 0
+    assert sum(x != 0.0 for x in s_loss) >= 8
+    np.testing.assert_allclose(s_loss, run["losses"], rtol=1e-3, atol=1e-6)
+    _assert_store_and_replay(s_sess, run["end"], dict(rtol=1e-3, atol=1e-5))
+    state = run["end"][0]
+    for lin, name in zip(s_sess.dqn.net.dense, ("Dense_0", "Dense_1",
+                                               "Dense_2")):
         np.testing.assert_allclose(
             lin.weight.detach().numpy(),
             np.asarray(state.params["params"][name]["kernel"]).T,

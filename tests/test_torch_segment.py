@@ -26,7 +26,10 @@ observations saturate the softmax, see there).  The trust-set keys are
 the attention's ``scores @ v``; with one-hot scores they follow
 ``v_lin``, which is held to rtol 1e-4, so the keys are held to rtol 1e-5
 and the counts they give exactly, after checking that no (query, row)
-pair lies within 1e-5 of a box edge.
+pair lies within 1e-5 of a box edge.  The warm-free steps also run as a
+static run of ``run_fn``'s runner (``tests/test_torch_graphs.py``'s
+``static_run``: what a replayed CUDA graph computes, each step eager),
+bit-equal to the eager loop and held to JAX the same way.
 """
 
 import jax
@@ -329,6 +332,98 @@ def test_kernel_route_equals_brute_route(jax_run):
     for name in ca[-1].replay._fields:
         assert torch.equal(getattr(ca[-1].replay, name),
                            getattr(cb[-1].replay, name)), name
+
+
+def _stacked_draws_tick(run_t):
+    """A trainer tick that takes the draws of its step from the stacked
+    ``draws`` it reads, at the trained-step count (the frame) on the
+    device, as JAX's scan takes its step keys."""
+    def tick(carry, draws, generator):
+        i = carry.frame.reshape(1).to(torch.int64)
+        return run_t.with_draws(carry, SEG.TrustsetDraws(
+            *(d.index_select(0, i)[0] for d in draws)), generator)
+    return tick
+
+
+def test_trustset_static_run_matches_loop_and_jax(jax_run):
+    """JAX's 12 steps on JAX's draws: the warm steps eagerly, then the
+    warm-free rest as a static run and as the eager loop of the same
+    tick.  The two equal bit for bit (metrics, carry, learner, generator)
+    and agree with JAX at ``test_trainer_matches_jax_step_for_step``'s
+    tolerances, across the warm boundary."""
+    from test_torch_graphs import assert_bit_equal, static_run
+
+    from dcarl_tpu_torch.utils import graphs
+
+    c0, carries_j, metrics_j = jax_run
+    run_t, carry = _port(c0)
+    warm = sum(int(m["ts_rows"]) == 0 for m in metrics_j)
+    assert 2 <= warm < STEPS - 4
+    gen = torch.Generator().manual_seed(0)
+    metrics = []
+    for step in range(warm):
+        carry, m = run_t.with_draws(carry, jax_draws(_key(step)), gen)
+        metrics.append(m)
+    # the step that fills a batch trains: the rest starts warm-free
+    assert carry.warm
+    carry, m = run_t.with_draws(carry, jax_draws(_key(warm)), gen)
+    metrics.append(m)
+    assert not carry.warm and int(carry.frame) == 1
+    n = STEPS - warm - 1
+    draws = [jax_draws(_key(s)) for s in range(warm, STEPS)]
+    stacked = SEG.TrustsetDraws(*(torch.stack(f) for f in zip(*draws)))
+    tick = _stacked_draws_tick(run_t)
+    start = run_t.learner.state_dict()
+    routes = []
+    for static in (True, False):
+        run_t.learner.load_state_dict(start)
+        g = torch.Generator().manual_seed(1)
+        if static:
+            out = static_run(graphs.TickRunner(tick, compiled=False), carry,
+                             stacked, n, g)
+        else:
+            out = graphs.run_loop(tick, carry, stacked, n, g)
+        routes.append((out, run_t.learner.state_dict(), g.get_state()))
+    assert_bit_equal(routes[0], routes[1], "trust-set static run")
+    (end, rest), _, _ = routes[0]
+    metrics += [{k: v[i] for k, v in rest.items()} for i in range(n)]
+
+    for step, (mt, mj) in enumerate(zip(metrics, metrics_j)):
+        for k in INT_METRICS:
+            assert int(mt[k]) == int(mj[k]), f"step {step} {k}"
+        assert float(mt["held_fraction"]) == float(mj["held_fraction"])
+        np.testing.assert_allclose(float(mt["reward_mean"]),
+                                   float(mj["reward_mean"]), rtol=1e-6)
+        np.testing.assert_allclose(float(mt["loss"]), float(mj["loss"]),
+                                   rtol=1e-4, atol=1e-5)
+    cj = carries_j[-1]
+    _assert_hold_close(end.hold, cj.hold, "end")
+    assert int(end.frame) == int(cj.dqn.frame) == STEPS - warm
+    rj = cj.dqn.replay
+    for name in ("action", "done", "size", "head"):
+        np.testing.assert_array_equal(getattr(end.replay, name).numpy(),
+                                      np.asarray(getattr(rj, name)), name)
+    for name in ("obs", "reward", "next_obs"):
+        np.testing.assert_allclose(getattr(end.replay, name).numpy(),
+                                   np.asarray(getattr(rj, name)), rtol=1e-5,
+                                   atol=1e-4, err_msg=name)
+    np.testing.assert_allclose(end.replay.priority.numpy(),
+                               np.asarray(rj.priority), rtol=1e-4, atol=1e-6)
+    st, sj = end.ts.store, cj.ts.store
+    for name in ("actions", "size", "head"):
+        np.testing.assert_array_equal(getattr(st, name).numpy(),
+                                      np.asarray(getattr(sj, name)), name)
+    np.testing.assert_allclose(st.keys.numpy(), np.asarray(sj.keys),
+                               rtol=1e-5, atol=1e-6)
+    lr, trained = tcfg.DQNConfig().lr, STEPS - warm
+    ref = interop.qnet_from_flax(cj.dqn.params, AttentionQNet(11))
+    for (name, p), r in zip(run_t.learner.net.named_parameters(),
+                            ref.parameters()):
+        tol = (dict(rtol=0, atol=trained * lr) if name[:5] in ("q_lin",
+                                                               "k_lin")
+               else dict(rtol=1e-4, atol=1e-6))
+        np.testing.assert_allclose(p.detach().numpy(), r.detach().numpy(),
+                                   err_msg=name, **tol)
 
 
 def test_run_fn_draws_its_own_randomness():
