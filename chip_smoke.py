@@ -2715,10 +2715,12 @@ def vec_phase(gpu: str, dev, algo_states=None) -> None:
     g = torch.Generator(device=dev).manual_seed(SEED)
     pst = init(g, 32)
     pst, _ = upd(pst, g)
+    PR.enable()     # the span shows in the trace only with tracing on
     with PR.trace(trace_dir):
-        with PR.annotate("ppo_update"):
+        with PR.span("ppo_update"):
             pst, _ = upd(pst, g)
         torch.cuda.synchronize()
+    PR.enable(False)
     files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
     if len(files) != 1:
         fail(f"vec: profiling.trace wrote {files}")
@@ -2997,11 +2999,13 @@ def agent_tick_profile(serve, msgs: list) -> dict:
                              "build", "chip_smoke_agent_trace")
     shutil.rmtree(trace_dir, ignore_errors=True)
     sync("cuda")
+    PR.enable()     # the span shows in the trace only with tracing on
     with PR.trace(trace_dir):
         for m in msgs:
-            with PR.annotate("agent_tick"):
+            with PR.span("agent_tick"):
                 serve(m)
         sync("cuda")
+    PR.enable(False)
     files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
     with open(os.path.join(trace_dir, files[0])) as f:
         events = json.load(f)["traceEvents"]
@@ -3713,11 +3717,13 @@ def replay_profile(cap, kernel: "str | None") -> dict:
                              "build", "chip_smoke_graph_trace")
     shutil.rmtree(trace_dir, ignore_errors=True)
     torch.cuda.synchronize()
+    PR.enable()     # the span shows in the trace only with tracing on
     with PR.trace(trace_dir):
         for _ in range(REPLAYS_TRACED):
-            with PR.annotate("graph_replay"):
+            with PR.span("graph_replay"):
                 cap.graph.replay()
                 torch.cuda.synchronize()
+    PR.enable(False)
     files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
     with open(os.path.join(trace_dir, files[0])) as f:
         events = json.load(f)["traceEvents"]

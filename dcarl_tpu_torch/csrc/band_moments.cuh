@@ -33,6 +33,17 @@
 // near-identical matched rows misses the oracle's rtol 1e-4, measured on
 // the H100); moments_sum then adds a query's chunks in chunk order.  No
 // atomics: the output is the same bits on every run.
+//
+// Counters (utils/profiling.py, when tracing is on).  moments_main is a
+// template on COUNT too.  With a non-null ``counters`` it adds up the
+// (query, row) pairs walked (a live query slot, a valid row of its
+// window) and matched, so that the matched total is the count the launch
+// returned.  Nothing is added in the row loop: a warp counts a piece's
+// valid rows together, and a chunk's matches are its queries' counts.
+// Each thread counts in registers, then one warp reduction and one
+// atomicAdd a warp and counter.  The brute kernel's query slots are its
+// padded ones (padding is +inf and matches nothing).  COUNT = false is
+// the kernel without counters.
 
 #pragma once
 
@@ -55,7 +66,7 @@ __host__ __device__ inline int record_floats(int D) {
     return (D + 2 + 3) / 4 * 4;
 }
 
-template <int D4>
+template <int D4, bool COUNT>
 __global__ void __launch_bounds__(NT) moments_main(
     const float* __restrict__ q_t,   // [D, Q] queries, tile order
     const float* __restrict__ rows,  // [n_pad, R] records
@@ -65,13 +76,15 @@ __global__ void __launch_bounds__(NT) moments_main(
     const int* __restrict__ s_hi,    // [n_qt] window end
     const int* __restrict__ off,     // [n_qt + 1] chunk offsets
     int Q, int D, int n_qt, int C,
-    double* __restrict__ partial)    // [chunks, 3, QT]
+    double* __restrict__ partial,    // [chunks, 3, QT]
+    unsigned long long* __restrict__ counters)  // [2] walked, matched
 {
     extern __shared__ __align__(128) unsigned char smem[];
     Ring<PIECE_N> ring;
     ring.init(smem, record_floats(D));
     const int R = ring.R;
     const int tid = threadIdx.x;
+    const int lane = tid & 31;
 
     float wr[D4];
     bool pad[D4];  // slot d >= D: not a key, never tested
@@ -80,6 +93,7 @@ __global__ void __launch_bounds__(NT) moments_main(
         pad[d] = d >= D;
         wr[d] = pad[d] ? CUDART_INF_F : __ldg(w + __ldg(perm + d));
     }
+    unsigned long long n_walked = 0, n_matched = 0;
 
     const int n_chunks = __ldg(off + n_qt);
     for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
@@ -89,9 +103,11 @@ __global__ void __launch_bounds__(NT) moments_main(
 
         // A dead query is NaN: |NaN - k| <= w is false for every row.
         float q[QPT][D4];
+        int n_live = 0;  // live query slots of this thread
 #pragma unroll
         for (int i = 0; i < QPT; ++i) {
             const int pos = t * QT + tid + i * NT;
+            n_live += pos < Q;
 #pragma unroll
             for (int d = 0; d < D4; ++d) {
                 q[i][d] = pad[d] ? 0.f
@@ -112,6 +128,14 @@ __global__ void __launch_bounds__(NT) moments_main(
         ring.walk(rows, n * PIECES,
                   [&](int j) { return s0 * SUB_N + j * PIECE_N; },
                   [&](const float* buf, int) {
+            if (COUNT) {  // the piece's valid rows, counted by the warp
+                unsigned valid = 0;
+                for (int r = lane; r < PIECE_N; r += 32) {
+                    valid += buf[r * R + D + 1] != 0.f;
+                }
+                n_walked += (unsigned long long)n_live
+                    * __reduce_add_sync(0xffffffffu, valid);
+            }
             // query i lies in the row's box along dims 4g..4g+3
             auto in_group = [&](int i, int g, const float4& k) {
                 const float kk[4] = {k.x, k.y, k.z, k.w};
@@ -164,11 +188,16 @@ __global__ void __launch_bounds__(NT) moments_main(
 
 #pragma unroll
         for (int i = 0; i < QPT; ++i) {
+            if (COUNT) n_matched += (unsigned long long)cnt[i];
             double* p = partial + (size_t)c * 3 * QT + tid + i * NT;
             p[0] = cnt[i];
             p[QT] = sum[i];
             p[2 * QT] = sumsq[i];
         }
+    }
+    if (COUNT) {
+        warp_total(counters, n_walked);
+        warp_total(counters + 1, n_matched);
     }
 }
 
@@ -198,13 +227,16 @@ template <int D4>
 cudaError_t run_d(const float* q_t, const float* rows, const int* perm,
                   const float* w, const int* s_lo, const int* s_hi,
                   const int* off, int Q, int D, int n_qt, int C,
-                  double* partial, float* out, cudaStream_t stream,
-                  int* grid) {
+                  double* partial, float* out, unsigned long long* counters,
+                  cudaStream_t stream, int* grid) {
     const size_t smem = ring_bytes<PIECE_N>(record_floats(D));
-    cudaError_t err = persistent_grid(moments_main<D4>, NT, smem, grid);
+    const auto main_pass = counters ? &moments_main<D4, true>
+                                    : &moments_main<D4, false>;
+    cudaError_t err = persistent_grid(main_pass, NT, smem, grid);
     if (err != cudaSuccess) return err;
-    moments_main<D4><<<*grid, NT, smem, stream>>>(
-        q_t, rows, perm, w, s_lo, s_hi, off, Q, D, n_qt, C, partial);
+    main_pass<<<*grid, NT, smem, stream>>>(
+        q_t, rows, perm, w, s_lo, s_hi, off, Q, D, n_qt, C, partial,
+        counters);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     moments_sum<<<n_qt, QT, 0, stream>>>(partial, off, Q, out);
@@ -212,16 +244,18 @@ cudaError_t run_d(const float* q_t, const float* rows, const int* perm,
 }
 
 // Both passes on `stream` (no synchronisation); *grid receives the main
-// pass's block count.  D in 1..MAX_D; C >= 1.
+// pass's block count; `counters` is null or the 2 int64 device totals the
+// main pass adds to.  D in 1..MAX_D; C >= 1.
 inline cudaError_t run(const float* q_t, const float* rows, const int* perm,
                        const float* w, const int* s_lo, const int* s_hi,
                        const int* off, int Q, int D, int n_qt, int C,
-                       double* partial, float* out, cudaStream_t stream,
+                       double* partial, float* out,
+                       unsigned long long* counters, cudaStream_t stream,
                        int* grid) {
 #define BAND_CASE(G)                                                         \
     case G:                                                                  \
         return run_d<4 * G>(q_t, rows, perm, w, s_lo, s_hi, off, Q, D, n_qt, \
-                            C, partial, out, stream, grid);
+                            C, partial, out, counters, stream, grid);
     switch ((D + 3) / 4) {
         BAND_CASE(1) BAND_CASE(2) BAND_CASE(3) BAND_CASE(4)
         BAND_CASE(5) BAND_CASE(6) BAND_CASE(7) BAND_CASE(8)

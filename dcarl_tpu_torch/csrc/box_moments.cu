@@ -32,12 +32,13 @@ using namespace band_moments;
 // returns cudaGetLastError() (0 = launched) and writes the main pass's
 // block count to the host int ``grid``.  The caller checks shapes, types,
 // contiguity and the device; q_pad is a multiple of 128 and ``partial``
-// holds ``off[n_qt]`` chunks of 3 x 128 doubles.
+// holds ``off[n_qt]`` chunks of 3 x 128 doubles; ``counters`` is null
+// (count nothing) or 2 int64 device totals (walked, matched).
 extern "C" int box_moments(
     const void* q_t, const void* rows, const void* perm, const void* w,
     const void* s_lo, const void* s_hi, const void* off,
-    int q_pad, int D, int n_qt, int C, void* partial, void* out, void* stream,
-    int* grid)
+    int q_pad, int D, int n_qt, int C, void* partial, void* out,
+    void* counters, void* stream, int* grid)
 {
     if (q_pad <= 0 || q_pad % QT != 0 || n_qt != q_pad / QT || D < 1
         || D > MAX_D || C < 1) {
@@ -46,5 +47,6 @@ extern "C" int box_moments(
     return (int)run((const float*)q_t, (const float*)rows, (const int*)perm,
                     (const float*)w, (const int*)s_lo, (const int*)s_hi,
                     (const int*)off, q_pad, D, n_qt, C, (double*)partial,
-                    (float*)out, (cudaStream_t)stream, grid);
+                    (float*)out, (unsigned long long*)counters,
+                    (cudaStream_t)stream, grid);
 }

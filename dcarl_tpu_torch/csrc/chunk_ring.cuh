@@ -1,6 +1,7 @@
 // Shared machinery of the store-query kernels (band_moments.cuh,
 // peraction_moments.cu): a chunked work list walked by persistent blocks,
-// and a ring of sub-slice buffers in shared memory filled by bulk copies.
+// a ring of sub-slice buffers in shared memory filled by bulk copies, and
+// the warp total the kernels' counters add with.
 //
 // Work list.  Query tile t (QT consecutive queries in the wrapper's sort
 // order) examines the row sub-slices [s_lo[t], s_hi[t]) (its window, from
@@ -52,6 +53,15 @@ __device__ __forceinline__ int chunk_tile(const int* __restrict__ off,
         if (__ldg(off + mid) <= c) lo = mid; else hi = mid;
     }
     return lo;
+}
+
+// The kernels' counters (utils/profiling.py): adds v over the warp into
+// *dst (lane 0, one atomicAdd); every lane of the warp calls it.
+__device__ __forceinline__ void warp_total(unsigned long long* dst,
+                                           unsigned long long v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if ((threadIdx.x & 31) == 0 && v != 0) atomicAdd(dst, v);
 }
 
 // Blocks of the persistent grid of `kernel` (`threads` a block, `smem`

@@ -64,6 +64,19 @@
 //  * The TPU kernel's bf16 distance prefilter is left out: it changes
 //    no result, and whether it pays on this card is still open
 //    (ROADMAP.md).
+//
+// Counters (utils/profiling.py, when tracing is on).  The main pass is a
+// template on COUNT.  With a non-null ``counters`` it adds up (query,
+// record) pairs walked (a live query undecided on the piece, a live
+// row), rows matched by walking and live rows settled whole from piece
+// sums, the last two by the count moment (a record the prepare collapsed
+// from duplicates counts its weight), so that their sum is the count the
+// launch returned.  Nothing is added in the row loop (an add a row cost
+// the kernel 12 % on the H100): a warp counts a walked piece's live rows
+// together, and a chunk's held and matched counts are its accumulators'
+// count moments before and after the walk.  Each thread counts in
+// registers; one warp reduction and one atomicAdd a warp and counter at
+// the end.  COUNT = false is the kernel without counters.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,6 +126,7 @@ __device__ __forceinline__ int settle(const float (&q)[OBS],
     return in ? 1 : (out ? 2 : 0);
 }
 
+template <bool COUNT>
 __global__ void __launch_bounds__(QT) peraction_main(
     const float* __restrict__ queries,   // [B, OBS] (caller order)
     const int64_t* __restrict__ qorder,  // [B] sorted position -> query row
@@ -131,7 +145,8 @@ __global__ void __launch_bounds__(QT) peraction_main(
     const int* __restrict__ s_hi,        // [n_qt] window end
     const int* __restrict__ off,         // [n_qt + 1] chunk offsets
     int B, int n_pad, int n_tile, int num_actions, int C,
-    double* __restrict__ partial)        // [chunks, 3 * num_actions, QT]
+    double* __restrict__ partial,        // [chunks, 3 * num_actions, QT]
+    unsigned long long* __restrict__ counters)  // [3] walked, matched, held
 {
     extern __shared__ __align__(128) unsigned char smem[];
     Ring<PIECE_N> ring;
@@ -153,6 +168,7 @@ __global__ void __launch_bounds__(QT) peraction_main(
     float wr[OBS];
 #pragma unroll
     for (int d = 0; d < OBS; ++d) wr[d] = __ldg(w + __ldg(perm + d));
+    unsigned long long n_walked = 0, n_matched = 0, n_held = 0;
 
     const int n_chunks = __ldg(off + n_qt);
     for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
@@ -215,6 +231,10 @@ __global__ void __launch_bounds__(QT) peraction_main(
             }
         }
         __syncthreads();  // kwalk is complete
+        double held = 0.0;  // the count moments held whole so far
+        if (COUNT) {
+            for (int a = 0; a < A; ++a) held += acc[3 * a * QT + tid];
+        }
 
         ring.walk(rows, n_walk, [&](int j) { return kwalk[j] * PIECE_N; },
                   [&](const float* buf, int j) {
@@ -222,6 +242,14 @@ __global__ void __launch_bounds__(QT) peraction_main(
             const bool open =
                 settle(q, wr, piece_box + (size_t)kwalk[j] * 2 * OBS) == 0;
             if (!__any_sync(0xffffffffu, open)) return;  // warp-uniform
+            if (COUNT) {  // the piece's live rows, counted by the warp
+                unsigned live = 0;
+                for (int r = lane; r < PIECE_N; r += 32) {
+                    live += __float_as_int(buf[r * REC + OBS]) >= 0;
+                }
+                live = __reduce_add_sync(0xffffffffu, live);
+                if (open) n_walked += live;
+            }
             // the query lies in the row's box along dims 4g..4g+3
             auto in_group = [&](int g, const float4& k) {
                 return ((fabsf(q[4 * g] - k.x) <= wr[4 * g])
@@ -247,8 +275,19 @@ __global__ void __launch_bounds__(QT) peraction_main(
             }
         });
 
+        if (COUNT) {
+            double total = 0.0;
+            for (int a = 0; a < A; ++a) total += acc[3 * a * QT + tid];
+            n_held += __double2ull_rn(held);
+            n_matched += __double2ull_rn(total - held);
+        }
         double* ps = partial + (size_t)c * 3 * A * QT + tid;
         for (int f = 0; f < 3 * A; ++f) ps[(size_t)f * QT] = acc[f * QT + tid];
+    }
+    if (COUNT) {
+        warp_total(counters, n_walked);
+        warp_total(counters + 1, n_matched);
+        warp_total(counters + 2, n_held);
     }
 }
 
@@ -287,7 +326,8 @@ __global__ void __launch_bounds__(QT) peraction_sum(
 // contiguity and the device; n_pad is a multiple of n_tile, n_tile of
 // 256, 1 <= C <= 64, and ``partial`` holds ``off[n_qt]`` chunks of
 // 3 * num_actions x 128 doubles; ``out`` is float, or double when
-// ``out_f64``.
+// ``out_f64``; ``counters`` is null (count nothing) or 3 int64 device
+// totals the launch adds to (walked, matched, held).
 extern "C" int peraction_moments(
     const void* queries, const void* qorder, const void* qext,
     const void* rows, const void* perm, const void* piece_box,
@@ -295,7 +335,7 @@ extern "C" int peraction_moments(
     const void* w, const void* w0, const void* w2,
     const void* s_lo, const void* s_hi, const void* off,
     int B, int n_pad, int n_tile, int num_actions, int C, int out_f64,
-    void* partial, void* out, void* stream, int* grid)
+    void* partial, void* out, void* counters, void* stream, int* grid)
 {
     if (B <= 0 || num_actions < 1 || num_actions > MAX_ACTIONS
         || n_tile % SUB_N != 0 || n_pad % n_tile != 0 || C < 1
@@ -303,17 +343,19 @@ extern "C" int peraction_moments(
         return (int)cudaErrorInvalidValue;
     }
     const size_t smem = smem_bytes(num_actions);
-    cudaError_t err = persistent_grid(peraction_main, QT, smem, grid);
+    const auto main_pass = counters ? &peraction_main<true>
+                                    : &peraction_main<false>;
+    cudaError_t err = persistent_grid(main_pass, QT, smem, grid);
     if (err != cudaSuccess) return (int)err;
     const cudaStream_t st = (cudaStream_t)stream;
-    peraction_main<<<*grid, QT, smem, st>>>(
+    main_pass<<<*grid, QT, smem, st>>>(
         (const float*)queries, (const int64_t*)qorder, (const float*)qext,
         (const float*)rows, (const int*)perm, (const float*)piece_box,
         (const double*)piece_mom, (const float*)kb, (const float*)kb2,
         (const float*)kbt, (const float*)w, (const float*)w0,
         (const float*)w2, (const int*)s_lo, (const int*)s_hi,
         (const int*)off, B, n_pad, n_tile, num_actions, C,
-        (double*)partial);
+        (double*)partial, (unsigned long long*)counters);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int n_qt = (B + QT - 1) / QT;

@@ -357,7 +357,7 @@ def make_trustset_trainer(
 
     runner = graphs.TickRunner(
         lambda carry, _inputs, generator: step(carry, generator),
-        device.type == "cuda", state=learner.state_tensors)
+        device.type == "cuda", state=learner.state_tensors, name="trustset")
 
     def run_fn(carry: TrustsetCarry, generator: torch.Generator,
                n_steps: int = 16):

@@ -31,16 +31,20 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel name -> ctypes argument types of its C entry point.  Every
+# Source name -> ctypes argument types of its C entry point.  Every
 # device pointer and the stream are c_void_p (a plain c_int would cut a
-# 64-bit pointer); the last argument is a host int that receives the
-# main pass's block count.  Each entry point returns cudaGetLastError()
-# as an int.
+# 64-bit pointer).  A store kernel's last arguments are the counters'
+# device totals (None: the launch counts nothing; ``utils/profiling``),
+# the stream and a host int that receives the main pass's block count;
+# ``capture_nodes`` (no kernel: the node count of a capturing graph,
+# for the phase tables of ``utils/profiling``) takes a stream and a host
+# count.  Each entry point returns a cudaError_t as an int.
 _P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 SIGNATURES: Dict[str, Sequence] = {
-    "peraction_moments": (_P,) * 16 + (_I,) * 6 + (_P,) * 3 + (_IP,),
-    "sorted_moments": (_P,) * 7 + (_I,) * 4 + (_P,) * 3 + (_IP,),
-    "box_moments": (_P,) * 7 + (_I,) * 4 + (_P,) * 3 + (_IP,),
+    "peraction_moments": (_P,) * 16 + (_I,) * 6 + (_P,) * 4 + (_IP,),
+    "sorted_moments": (_P,) * 7 + (_I,) * 4 + (_P,) * 4 + (_IP,),
+    "box_moments": (_P,) * 7 + (_I,) * 4 + (_P,) * 4 + (_IP,),
+    "capture_nodes": (_P, ctypes.POINTER(ctypes.c_ulonglong)),
 }
 
 # Launches per kernel: each wrapper adds one where it launches its

@@ -35,7 +35,10 @@ Every kernel launch first builds a :class:`Plan` on the device, with no
 host synchronisation (:func:`peraction_plan`, :func:`sorted_plan`,
 :func:`brute_plan`): each 128-query tile's window of 256-row sub-slices,
 cut into chunks that a persistent grid walks; a second pass in the same
-launch adds each query's chunk partials in chunk order.
+launch adds each query's chunk partials in chunk order.  With tracing on
+(``utils/profiling``) a launch also adds its counts (pairs walked, rows
+matched, and for the per-action kernel rows held whole) to the device
+totals ``profiling.counters`` gives.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import torch
 
 from dcarl_tpu_torch.core.store import _raw_moments
 from dcarl_tpu_torch.ops import _cuda
+from dcarl_tpu_torch.utils import profiling
 
 # Finite padding key: far outside any real key range (same value as the
 # JAX package's pallas_store._PAD and core/store.py SENTINEL_KEY).
@@ -485,6 +489,7 @@ def launch_peraction(prep: PreparedPerActionStore, queries: torch.Tensor,
                           dtype=torch.float64, device=dev)
     out = torch.empty((b, 3 * num_actions), dtype=out_dtype, device=dev)
     fn = _cuda.load("peraction_moments").peraction_moments
+    counts = profiling.counters("peraction_moments", dev)
     p, grid = ctypes.c_void_p, ctypes.c_int(0)
     err = fn(p(queries.data_ptr()), p(qorder.data_ptr()), p(qext.data_ptr()),
              p(prep.rows.data_ptr()), p(prep.perm.data_ptr()),
@@ -495,9 +500,9 @@ def launch_peraction(prep: PreparedPerActionStore, queries: torch.Tensor,
              p(plan.s_lo.data_ptr()), p(plan.s_hi.data_ptr()),
              p(plan.off.data_ptr()), b, prep.keys_t.shape[1], prep.n_tile,
              num_actions, plan.chunk, int(out_dtype == torch.float64),
-             p(partial.data_ptr()),
-             p(out.data_ptr()), p(torch.cuda.current_stream(dev).cuda_stream),
-             ctypes.byref(grid))
+             p(partial.data_ptr()), p(out.data_ptr()),
+             None if counts is None else p(counts.data_ptr()),
+             p(torch.cuda.current_stream(dev).cuda_stream), ctypes.byref(grid))
     if err != 0:
         raise RuntimeError(f"peraction_moments launch failed: CUDA error {err}")
     _cuda.LAUNCHES["peraction_moments"] += 1
@@ -709,11 +714,13 @@ def _launch_band(name: str, q_t, rows, perm, w, plan: Plan) -> torch.Tensor:
                           device=dev)
     out = torch.empty((q, 3), dtype=torch.float32, device=dev)
     fn = getattr(_cuda.load(name), name)
+    counts = profiling.counters(name, dev)
     p, grid = ctypes.c_void_p, ctypes.c_int(0)
     err = fn(p(q_t.data_ptr()), p(rows.data_ptr()), p(perm.data_ptr()),
              p(w.data_ptr()), p(plan.s_lo.data_ptr()), p(plan.s_hi.data_ptr()),
              p(plan.off.data_ptr()), q, d, plan.s_lo.shape[0], plan.chunk,
              p(partial.data_ptr()), p(out.data_ptr()),
+             None if counts is None else p(counts.data_ptr()),
              p(torch.cuda.current_stream(dev).cuda_stream), ctypes.byref(grid))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -38,7 +38,7 @@ from dcarl_tpu_torch.ops import polynomial as poly
 from dcarl_tpu_torch.ops import store_kernels
 from dcarl_tpu_torch.parallel import collectives as coll
 from dcarl_tpu_torch.parallel.mesh import ProcessMesh
-from dcarl_tpu_torch.utils import graphs
+from dcarl_tpu_torch.utils import graphs, profiling
 
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
@@ -647,12 +647,14 @@ def make_rule_driver_fast(sc: Scenario,
     n_v = len(wcfg.target_speeds)
 
     def tick(state: FastEnvState, _inputs, generator: torch.Generator):
-        t = _plan_tick(state, idx, tab, wcfg, n_obj)
-        state, reward, done = _follow(t, t.rule_index, n_v, state,
-                                      generator, sa, env_cfg)
+        with profiling.phase("plan"):
+            t = _plan_tick(state, idx, tab, wcfg, n_obj)
+        with profiling.phase("env_step"):
+            state, reward, done = _follow(t, t.rule_index, n_v, state,
+                                          generator, sa, env_cfg)
         return state, (reward, done, state.passed, state.collided)
 
-    runner = graphs.TickRunner(tick, device.type == "cuda")
+    runner = graphs.TickRunner(tick, device.type == "cuda", name="rule")
 
     def run_fn(carry: FastEnvState, n_steps: int, generator: torch.Generator):
         return runner(carry, (), n_steps, generator)
@@ -762,7 +764,7 @@ def make_collector_fast(sc: Scenario,
             locked_y=locked_y, locked_speed_end=locked_se,
             recorded_state=recorded_state, used_action=used_action), record
 
-    runner = graphs.TickRunner(tick, device.type == "cuda")
+    runner = graphs.TickRunner(tick, device.type == "cuda", name="collector")
 
     def run_fn(carry: FastCollectorCarry, n_steps: int,
                generator: torch.Generator):
@@ -842,6 +844,13 @@ def make_gated_driver_fast(sc: Scenario,
     store_valid[, query_offset])`` gives what a run's ticks read, which
     the captured graph's buffers take by copy.
 
+    Traced (``utils/profiling``), a tick's phases are ``plan`` (the
+    lattice and the query's observation), ``query`` (the per-action
+    query: operands, plan, both passes), ``gate`` (the Welch test and the
+    executed index) and ``env_step`` (control and the env step), and a
+    call's store prepare is the host span ``dcarl.store_prepare``; the
+    runner is ``gated``.
+
     ``mesh`` (JAX's ``psum_axis`` path, :func:`make_gated_driver_sharded`):
     the carry holds this rank's block of the envs and the store arguments
     this rank's rows.  Each tick every env's gate sees the whole store:
@@ -887,9 +896,10 @@ def make_gated_driver_fast(sc: Scenario,
         store_values = torch.as_tensor(store_values, device=device)
         store_valid = torch.as_tensor(store_valid, device=device)
         if use_kernel:
-            store = store_kernels.prepare_peraction_store(
-                store_keys, store_values, store_valid, half_widths,
-                num_actions=num_actions)
+            with profiling.span("dcarl.store_prepare"):
+                store = store_kernels.prepare_peraction_store(
+                    store_keys, store_values, store_valid, half_widths,
+                    num_actions=num_actions)
         else:
             store = (store_keys.to(dtype), store_values.to(dtype), store_valid)
         offset = None if query_offset is None else torch.as_tensor(
@@ -898,36 +908,41 @@ def make_gated_driver_fast(sc: Scenario,
 
     def tick(state: FastEnvState, inputs, generator: torch.Generator):
         store, offset = inputs
-        t = _plan_tick(state, idx, tab, wcfg, n_obj)
-        b = t.obs.shape[1]
-        obs_bf = t.obs.T                                      # [B, 20]
-        if offset is not None:
-            obs_bf = obs_bf + offset[None, :]
-        obs_q = obs_bf if mesh is None else coll.all_gather(obs_bf, mesh)
-        if use_kernel:
-            moments = store_kernels.query_peraction_prepared(
-                store, obs_q.to(torch.float32).contiguous(),
-                out_dtype=sum_dtype).reshape(-1, 3)
-        else:
-            keys_w, vals_w, valid = store
-            moments = _raw_moments(keys_w, vals_w, valid, obs_q, half_widths,
-                                   num_actions)
-        if mesh is not None:
-            moments = coll.reduce_scatter(moments, mesh).to(torch.float32)
-        qs = moments_to_stats(moments)
-        stats = RLSmod.ActionStats(
-            count=qs.count.reshape(b, num_actions).to(dtype),
-            mean=qs.mean.reshape(b, num_actions).to(dtype),
-            var=qs.var.reshape(b, num_actions).to(dtype),
-            sigma=qs.sigma.reshape(b, num_actions).to(dtype))
-        g = RLSmod.act_test(stats, scfg)                       # [B]
-        executed = torch.where(g == 0, t.rule_index, g).to(torch.int32)
-        state, reward, done = _follow(t, executed.to(torch.int64), n_v,
-                                      state, generator, sa, env_cfg)
+        with profiling.phase("plan"):
+            t = _plan_tick(state, idx, tab, wcfg, n_obj)
+            b = t.obs.shape[1]
+            obs_bf = t.obs.T                                  # [B, 20]
+            if offset is not None:
+                obs_bf = obs_bf + offset[None, :]
+        with profiling.phase("query"):
+            obs_q = obs_bf if mesh is None else coll.all_gather(obs_bf, mesh)
+            if use_kernel:
+                moments = store_kernels.query_peraction_prepared(
+                    store, obs_q.to(torch.float32).contiguous(),
+                    out_dtype=sum_dtype).reshape(-1, 3)
+            else:
+                keys_w, vals_w, valid = store
+                moments = _raw_moments(keys_w, vals_w, valid, obs_q,
+                                       half_widths, num_actions)
+            if mesh is not None:
+                moments = coll.reduce_scatter(moments, mesh).to(torch.float32)
+        with profiling.phase("gate"):
+            qs = moments_to_stats(moments)
+            stats = RLSmod.ActionStats(
+                count=qs.count.reshape(b, num_actions).to(dtype),
+                mean=qs.mean.reshape(b, num_actions).to(dtype),
+                var=qs.var.reshape(b, num_actions).to(dtype),
+                sigma=qs.sigma.reshape(b, num_actions).to(dtype))
+            g = RLSmod.act_test(stats, scfg)                   # [B]
+            executed = torch.where(g == 0, t.rule_index, g).to(torch.int32)
+        with profiling.phase("env_step"):
+            state, reward, done = _follow(t, executed.to(torch.int64), n_v,
+                                          state, generator, sa, env_cfg)
         return state, (reward, done, state.passed, state.collided, executed,
                        g)
 
-    runner = graphs.TickRunner(tick, device.type == "cuda" and mesh is None)
+    runner = graphs.TickRunner(tick, device.type == "cuda" and mesh is None,
+                               name="gated")
 
     def run_fn(carry: FastEnvState, n_steps: int, store_keys, store_values,
                store_valid, query_offset=None, *, generator: torch.Generator):

@@ -39,6 +39,13 @@ On CUDA a run of steps replays one captured CUDA graph of a step
 (``utils/graphs.py``), as JAX jits its scan of steps; the learner's
 Adam is then ``capturable`` (its state on the device), and so is the
 eager loop's on the card, so the two give the same bits.
+
+Traced (``utils/profiling``), a step's phases are ``draw`` (the step's
+draws, in ``step_fn``) and, along ``with_draws``' numbered comments,
+``plan`` (1), ``rule_query`` (2), ``propose_gate`` (3-4), ``env_step``
+(5), ``store_write`` (6: the trajectory push, the backfill compaction,
+both inserts) and ``td_step`` (7: replay push and sample, the TD update,
+priorities, target update, metrics); the runner is ``train``.
 """
 
 from __future__ import annotations
@@ -62,7 +69,7 @@ from dcarl_tpu_torch.parallel import collectives as coll
 from dcarl_tpu_torch.parallel.mesh import ProcessMesh
 from dcarl_tpu_torch.planning import fast_rollout as FR
 from dcarl_tpu_torch.train import StepMetrics, reduce_metrics
-from dcarl_tpu_torch.utils import graphs
+from dcarl_tpu_torch.utils import graphs, profiling
 
 
 class FastTrainState(NamedTuple):
@@ -298,108 +305,123 @@ def make_trainer_fast(
                                 state.store_head[0])
 
         # 1. plan all candidates (lane-major lattice) + the rule pick
-        tick = FR._plan_tick(env, idx, tab, wcfg, n_obj)
-        obs = tick.obs                                      # [20, B]
-        obs_bf = obs.T                                      # [B, 20]
+        with profiling.phase("plan"):
+            tick = FR._plan_tick(env, idx, tab, wcfg, n_obj)
+            obs = tick.obs                                  # [20, B]
+            obs_bf = obs.T                                  # [B, 20]
 
         # 2. confidence stats of the rule column
-        qs = moments_to_stats(query_rule_column(store, obs_bf))
-        stats = RLS.ActionStats(*(f[:, None] for f in qs))
+        with profiling.phase("rule_query"):
+            qs = moments_to_stats(query_rule_column(store, obs_bf))
+            stats = RLS.ActionStats(*(f[:, None] for f in qs))
 
         # 3-4. DQN proposes, RLS gates (deepq/dqn.py:226-236)
-        rl_action = learner.act_epsilon_greedy(
-            obs_bf, state.frame, draws.eps_uniform, draws.random_action)
-        env_action = RLS.act_train(stats, rl_action, draws.gate_uniform, scfg)
+        with profiling.phase("propose_gate"):
+            rl_action = learner.act_epsilon_greedy(
+                obs_bf, state.frame, draws.eps_uniform, draws.random_action)
+            env_action = RLS.act_train(stats, rl_action, draws.gate_uniform,
+                                       scfg)
 
         # 5. gated action 0 follows the rule policy's pick (which brakes
         # only when no path is collision-free); the recorded action
         # stays env_action
-        exec_index = torch.where(env_action == 0, tick.rule_index,
-                                 env_action.to(torch.int64))
-        env2, reward, done = FR._follow(tick, exec_index, n_v, env,
-                                        generator, sa, env_cfg)
-        obs2 = FR._obs_ori_soa(env2, idx)
+        with profiling.phase("env_step"):
+            exec_index = torch.where(env_action == 0, tick.rule_index,
+                                     env_action.to(torch.int64))
+            env2, reward, done = FR._follow(tick, exec_index, n_v, env,
+                                            generator, sa, env_cfg)
+            obs2 = FR._obs_ori_soa(env2, idx)
 
         # 6. trajectory-buffer push -> store records (RLS.add_data)
-        bufs, recs = RLS.traj_push_lane(
-            state.traj_obs[0], state.traj_act[0], state.traj_rew[0],
-            state.traj_len[0], obs, env_action, reward, done, scfg)
-        if scfg.value_mode == "episode":
-            # warmup filter: a buffer shorter than its episode's step
-            # count started mid-episode (init_step_offset) and would
-            # record truncated returns
-            on_time = state.traj_len[0] == env.step_count
-            recs = recs._replace(valid=recs.valid & on_time[None, :])
-        # terminal backfills, env-major (the batch-first emission order)
-        bk = recs.keys[1:].permute(2, 0, 1).reshape(-1, obs_dim + 1)
-        ba = recs.actions[1:].T.reshape(-1)
-        bv = recs.values[1:].T.reshape(-1)
-        bm = recs.valid[1:].T.reshape(-1)
-        if backfill_budget_per_step is not None:
-            # compact the valid backfills to the front of a fixed budget:
-            # each row's destination is its rank among the valid rows
-            kbud = int(backfill_budget_per_step)
-            n_backfill = bm.sum()
-            rank = torch.cumsum(bm.to(torch.int64), 0) - 1
-            dest = torch.where(bm & (rank < kbud), rank, kbud)
-            bk, ba, bv = (_compact(x, dest, kbud) for x in (bk, ba, bv))
-            bm = torch.arange(kbud, device=device) \
-                < torch.clamp(n_backfill, max=kbud)
-            dropped = torch.clamp(n_backfill - kbud, min=0).to(torch.int32)
-        else:
-            dropped = torch.zeros((), dtype=torch.int32, device=device)
+        with profiling.phase("store_write"):
+            bufs, recs = RLS.traj_push_lane(
+                state.traj_obs[0], state.traj_act[0], state.traj_rew[0],
+                state.traj_len[0], obs, env_action, reward, done, scfg)
+            if scfg.value_mode == "episode":
+                # warmup filter: a buffer shorter than its episode's step
+                # count started mid-episode (init_step_offset) and would
+                # record truncated returns
+                on_time = state.traj_len[0] == env.step_count
+                recs = recs._replace(valid=recs.valid & on_time[None, :])
+            # terminal backfills, env-major (the batch-first emission order)
+            bk = recs.keys[1:].permute(2, 0, 1).reshape(-1, obs_dim + 1)
+            ba = recs.actions[1:].T.reshape(-1)
+            bv = recs.values[1:].T.reshape(-1)
+            bm = recs.valid[1:].T.reshape(-1)
+            if backfill_budget_per_step is not None:
+                # compact the valid backfills to the front of a fixed
+                # budget: each row's destination is its rank among the
+                # valid rows
+                kbud = int(backfill_budget_per_step)
+                n_backfill = bm.sum()
+                rank = torch.cumsum(bm.to(torch.int64), 0) - 1
+                dest = torch.where(bm & (rank < kbud), rank, kbud)
+                bk, ba, bv = (_compact(x, dest, kbud) for x in (bk, ba, bv))
+                bm = torch.arange(kbud, device=device) \
+                    < torch.clamp(n_backfill, max=kbud)
+                dropped = torch.clamp(n_backfill - kbud,
+                                      min=0).to(torch.int32)
+            else:
+                dropped = torch.zeros((), dtype=torch.int32, device=device)
 
-        if dense_store_writes:
-            new_store = ST.store_insert_dense_block(
-                store, torch.cat([recs.keys[0].T, bk]),
-                torch.cat([recs.actions[0], ba]),
-                torch.cat([recs.values[0], bv]),
-                torch.cat([recs.valid[0], bm]))
-            # dense blocks take a slot per row, sentinel or not
-            slots_written = b + bm.shape[0]
-        else:
-            new_store = ST.store_insert(store, recs.keys[0].T,
-                                        recs.actions[0], recs.values[0],
-                                        recs.valid[0])
-            new_store = ST.store_insert(new_store, bk, ba, bv, bm)
-            slots_written = recs.valid[0].sum() + bm.sum()
+            if dense_store_writes:
+                new_store = ST.store_insert_dense_block(
+                    store, torch.cat([recs.keys[0].T, bk]),
+                    torch.cat([recs.actions[0], ba]),
+                    torch.cat([recs.values[0], bv]),
+                    torch.cat([recs.valid[0], bm]))
+                # dense blocks take a slot per row, sentinel or not
+                slots_written = b + bm.shape[0]
+            else:
+                new_store = ST.store_insert(store, recs.keys[0].T,
+                                            recs.actions[0], recs.values[0],
+                                            recs.valid[0])
+                new_store = ST.store_insert(new_store, bk, ba, bv, bm)
+                slots_written = recs.valid[0].sum() + bm.sum()
 
         # 7. replay push + prioritized TD step
-        replay = RB.replay_push(_shard0(state.replay), obs_bf, env_action,
-                                reward, obs2.T, done.to(torch.float32))
-        beta = DQ.beta_by_frame(state.frame, dq)
-        batch = RB.replay_sample(replay, draws.gumbel,
-                                 alpha=dq.priority_alpha, beta=beta)
-        loss, prios = learner.train_on(
-            batch, torch.zeros(dq.batch_size, device=device), mesh=mesh)
-        replay = RB.replay_update_priorities(replay, batch.indices, prios)
-        frame = (state.frame + 1).to(torch.int32)
-        learner.update_target((frame % dq.target_update_every) == 0)
+        with profiling.phase("td_step"):
+            replay = RB.replay_push(_shard0(state.replay), obs_bf,
+                                    env_action, reward, obs2.T,
+                                    done.to(torch.float32))
+            beta = DQ.beta_by_frame(state.frame, dq)
+            batch = RB.replay_sample(replay, draws.gumbel,
+                                     alpha=dq.priority_alpha, beta=beta)
+            loss, prios = learner.train_on(
+                batch, torch.zeros(dq.batch_size, device=device), mesh=mesh)
+            replay = RB.replay_update_priorities(replay, batch.indices,
+                                                 prios)
+            frame = (state.frame + 1).to(torch.int32)
+            learner.update_target((frame % dq.target_update_every) == 0)
 
-        metrics = reduce_metrics(StepMetrics(
-            reward_mean=reward.mean(),
-            done_count=done.sum(),
-            pass_count=(env2.passed & done).sum(),
-            collision_count=(env2.collided & done).sum(),
-            loss=loss,
-            rule_fraction=(env_action == 0).to(torch.float32).mean(),
-            store_rows=new_store.size,
-            dropped_records=dropped), mesh)
-        new_state = FastTrainState(
-            env=_lead(env2), obs_ori=obs2[None],
-            traj_obs=bufs[0][None], traj_act=bufs[1][None],
-            traj_rew=bufs[2][None], traj_len=bufs[3][None],
-            store_keys=new_store.keys[None],
-            store_actions=new_store.actions[None],
-            store_values=new_store.values[None],
-            store_size=new_store.size[None], store_head=new_store.head[None],
-            store_total=(state.store_total + slots_written).to(torch.int32),
-            replay=_lead(replay), frame=frame)
+            metrics = reduce_metrics(StepMetrics(
+                reward_mean=reward.mean(),
+                done_count=done.sum(),
+                pass_count=(env2.passed & done).sum(),
+                collision_count=(env2.collided & done).sum(),
+                loss=loss,
+                rule_fraction=(env_action == 0).to(torch.float32).mean(),
+                store_rows=new_store.size,
+                dropped_records=dropped), mesh)
+            new_state = FastTrainState(
+                env=_lead(env2), obs_ori=obs2[None],
+                traj_obs=bufs[0][None], traj_act=bufs[1][None],
+                traj_rew=bufs[2][None], traj_len=bufs[3][None],
+                store_keys=new_store.keys[None],
+                store_actions=new_store.actions[None],
+                store_values=new_store.values[None],
+                store_size=new_store.size[None],
+                store_head=new_store.head[None],
+                store_total=(state.store_total
+                             + slots_written).to(torch.int32),
+                replay=_lead(replay), frame=frame)
         return new_state, metrics
 
     def step_fn(state: FastTrainState, generator: torch.Generator
                 ) -> Tuple[FastTrainState, StepMetrics]:
-        return with_draws(state, draw(generator), generator)
+        with profiling.phase("draw"):
+            draws = draw(generator)
+        return with_draws(state, draws, generator)
 
     step_fn.with_draws = with_draws
     step_fn.draw = draw
@@ -408,7 +430,7 @@ def make_trainer_fast(
         return step_fn(state, generator)
 
     runner = graphs.TickRunner(tick, device.type == "cuda" and mesh is None,
-                               state=learner.state_tensors)
+                               state=learner.state_tensors, name="train")
 
     def run_fn_factory(n_steps: int):
         """A runner of ``n_steps`` training steps (the metrics come back

@@ -55,6 +55,13 @@ A maker compiles on a CUDA device and without a mesh (gloo cannot be
 captured, and NCCL capture is not done yet); elsewhere it runs the eager
 route (:func:`run_loop`, or the function itself), which is also the
 reference a replay is held to bit for bit.
+
+Tracing (``utils/profiling``, when on): a :class:`TickRunner` call opens
+the host spans ``dcarl.load``, ``dcarl.capture``, ``dcarl.replay.<name>``
+(the whole replay loop) and ``dcarl.result``; its capture records the
+tick's phase table under the runner's name, the tick's own write of its
+outputs and carry being the phase ``writeback``.  The switch is part of a
+capture's key, so a run after it flips captures anew.
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ from typing import Callable, Hashable, List, Optional, Sequence
 import torch
 
 from dcarl_tpu_torch.ops import _cuda
+from dcarl_tpu_torch.utils import profiling
 
 _TENSOR = "tensor"
 _CONST = "const"
@@ -166,12 +174,15 @@ class _Graph:
 
 class _Runner:
     """What both runners share: the route, the in-place state, the
-    generator registered with the graphs, the side stream, the capture."""
+    generator registered with the graphs, the side stream, the capture.
+    ``name`` (None: not traced) registers each capture's phase table."""
 
     def __init__(self, compiled: bool,
-                 state: "Callable[[], Sequence[torch.Tensor]] | None"):
+                 state: "Callable[[], Sequence[torch.Tensor]] | None",
+                 name: Optional[str] = None):
         self.compiled = compiled
         self.state = state
+        self.name = name
         self._generator: Optional[torch.Generator] = None
         self._stream: Optional["torch.cuda.Stream"] = None
 
@@ -212,7 +223,8 @@ class _Runner:
         reserved = torch.cuda.memory_reserved(device)
         counted = collections.Counter(_cuda.LAUNCHES)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=pool, stream=side):
+        with torch.cuda.graph(graph, pool=pool, stream=side), \
+                profiling.capturing(self.name):
             body()
         cap.capture_seconds = time.perf_counter() - t0
         # the capture launched nothing: its counts go to the replays
@@ -249,14 +261,17 @@ class TickRunner(_Runner):
     ``tick(carry, inputs, generator) -> (carry, outs)`` must return a
     carry of the structure, shapes and dtypes it was given and must not
     write into its arguments; it may update the tensors ``state()``
-    names in place."""
+    names in place.  ``name`` names the runner's replay span and phase
+    table (``utils/profiling``)."""
 
     def __init__(self, tick: Callable, compiled: bool,
-                 state: "Callable[[], Sequence[torch.Tensor]] | None" = None):
-        super().__init__(compiled, state)
+                 state: "Callable[[], Sequence[torch.Tensor]] | None" = None,
+                 name: Optional[str] = None):
+        super().__init__(compiled, state, name)
         self.tick = tick
         self._captures: "collections.OrderedDict" = collections.OrderedDict()
         self.last: Optional[_Capture] = None
+        self._replay_span = f"dcarl.replay.{name}"
 
     def __call__(self, carry, inputs, n_steps: int,
                  generator: torch.Generator):
@@ -265,25 +280,31 @@ class TickRunner(_Runner):
         where the eager loop leaves it."""
         if not self.compiled:
             return run_loop(self.tick, carry, inputs, n_steps, generator)
-        cap, specs = self._load(carry, inputs, n_steps)
-        gen = self._own_generator(generator)
+        with profiling.span("dcarl.load"):
+            cap, specs = self._load(carry, inputs, n_steps)
+            gen = self._own_generator(generator)
         done = 0
         if cap.graph is None:
-            device = cap.carry[0].device
-            self._eager_on_side(device, lambda: self._tick(cap, specs, gen))
-            done = 1
-            if n_steps > 1:
-                self._capture(cap, device,
-                              lambda: self._tick(cap, specs, gen), gen)
-        cap.replay(n_steps - done)
+            with profiling.span("dcarl.capture"):
+                device = cap.carry[0].device
+                self._eager_on_side(device,
+                                    lambda: self._tick(cap, specs, gen))
+                done = 1
+                if n_steps > 1:
+                    self._capture(cap, device,
+                                  lambda: self._tick(cap, specs, gen), gen)
+        with profiling.span(self._replay_span):
+            cap.replay(n_steps - done)
         generator.set_state(gen.get_state())
-        return self._result(cap, specs)
+        with profiling.span("dcarl.result"):
+            return self._result(cap, specs)
 
     # ------------------------------------------------------------------
     def _load(self, carry, inputs, n_steps: int):
         """The capture of this run's key (made if missing), its static
         buffers holding ``carry`` and ``inputs`` and its step index at 0;
-        and the trees' specs."""
+        and the trees' specs.  The key holds the tracing switch: a graph
+        captured with it off has no phase table and no counters."""
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
         c_leaves, i_leaves = [], []
@@ -292,7 +313,7 @@ class TickRunner(_Runner):
         if not c_leaves:
             raise ValueError("the carry holds no tensor")
         state = self._state()
-        key = (c_spec, i_spec, n_steps)
+        key = (c_spec, i_spec, n_steps, profiling.enabled())
         cap = self._captures.get(key)
         if cap is not None and not cap.holds(state):
             self._drop(key)     # the in-place state was replaced
@@ -326,24 +347,25 @@ class TickRunner(_Runner):
         c_spec, i_spec = specs
         new, outs = self.tick(_unflatten(c_spec, iter(cap.carry)),
                               _unflatten(i_spec, iter(cap.inputs)), generator)
-        out_leaves: List[torch.Tensor] = []
-        out_spec = _flatten(outs, out_leaves)
-        if cap.outs is None:
-            cap.out_spec = out_spec
-            cap.outs = [torch.empty((cap.n_steps,) + tuple(o.shape),
-                                    dtype=o.dtype, device=o.device)
-                        for o in out_leaves]
-        elif out_spec != cap.out_spec:
-            raise TypeError("the tick's outputs changed structure, shape or "
-                            "dtype between ticks")
-        for buf, o in zip(cap.outs, out_leaves):
-            buf.index_copy_(0, cap.step, o.unsqueeze(0))
-        new_leaves: List[torch.Tensor] = []
-        if _flatten(new, new_leaves) != c_spec:
-            raise TypeError("the tick must return a carry of the structure, "
-                            "shapes and dtypes it was given")
-        write_back(cap.carry, new_leaves)
-        cap.step.add_(1).remainder_(cap.n_steps)
+        with profiling.phase("writeback"):
+            out_leaves: List[torch.Tensor] = []
+            out_spec = _flatten(outs, out_leaves)
+            if cap.outs is None:
+                cap.out_spec = out_spec
+                cap.outs = [torch.empty((cap.n_steps,) + tuple(o.shape),
+                                        dtype=o.dtype, device=o.device)
+                            for o in out_leaves]
+            elif out_spec != cap.out_spec:
+                raise TypeError("the tick's outputs changed structure, shape "
+                                "or dtype between ticks")
+            for buf, o in zip(cap.outs, out_leaves):
+                buf.index_copy_(0, cap.step, o.unsqueeze(0))
+            new_leaves: List[torch.Tensor] = []
+            if _flatten(new, new_leaves) != c_spec:
+                raise TypeError("the tick must return a carry of the "
+                                "structure, shapes and dtypes it was given")
+            write_back(cap.carry, new_leaves)
+            cap.step.add_(1).remainder_(cap.n_steps)
 
     def _drop(self, key) -> None:
         cap = self._captures.pop(key)

@@ -147,6 +147,10 @@ MISSING_BY_DESIGN = {
     ("parallel/vec_env", "JaxVecEnv"),
     # the port's get_absolute_state broadcasts over a batch
     ("ops/kinematics", "get_absolute_state_batch"),
+    # the port's named regions are profiling.span, behind the tracing
+    # switch, and its timings come from the device trace: no host timer
+    ("utils/profiling", "annotate"),
+    ("utils/profiling", "StepTimer"),
 }
 JAX_MODULES = sorted(
     p.relative_to(ROOT / "dcarl_tpu").with_suffix("").as_posix()

@@ -322,24 +322,22 @@ def test_nan_guard_matches_jax():
 
 
 def test_profiling_trace_annotate_and_timer(tmp_path):
+    """The operator's exporter: no file without a directory; one Chrome
+    trace holding the program's span (tracing on) and the ops.  The
+    span is ``span``; ``annotate`` and ``StepTimer`` are gone."""
     with PR.trace(None):
         x = torch.ones(3) * 2
     assert not list(tmp_path.iterdir())
-    with PR.trace(str(tmp_path)):
-        with PR.annotate("dcarl_span"):
-            x = torch.ones(64, 64) @ torch.ones(64, 64)
+    PR.enable()
+    try:
+        with PR.trace(str(tmp_path)):
+            with PR.span("dcarl_span"):
+                x = torch.ones(64, 64) @ torch.ones(64, 64)
+    finally:
+        PR.enable(False)
     files = list(tmp_path.glob("trace_*.json"))
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any(ev.get("name") == "dcarl_span" for ev in events)
     assert any("mm" in str(ev.get("name", "")) for ev in events)
-
-    timer = PR.StepTimer()
-    for _ in range(3):
-        with timer.section("env"):
-            x = x + 1
-    with timer.section("learn"):
-        pass
-    s = timer.summary()
-    assert s["env"]["count"] == 3 and s["learn"]["count"] == 1
-    assert s["env"]["mean_s"] == pytest.approx(s["env"]["total_s"] / 3)
+    assert not hasattr(PR, "annotate") and not hasattr(PR, "StepTimer")
