@@ -37,8 +37,9 @@ host synchronisation (:func:`peraction_plan`, :func:`sorted_plan`,
 cut into chunks that a persistent grid walks; a second pass in the same
 launch adds each query's chunk partials in chunk order.  With tracing on
 (``utils/profiling``) a launch also adds its counts (pairs walked, rows
-matched, and for the per-action kernel rows held whole) to the device
-totals ``profiling.counters`` gives.
+matched, and for the per-action kernel rows held whole and the walk's
+(warp, row) iterations) to the device totals ``profiling.counters``
+gives.
 """
 
 from __future__ import annotations
@@ -480,13 +481,16 @@ def launch_peraction(prep: PreparedPerActionStore, queries: torch.Tensor,
                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plan, then launch ``csrc/peraction_moments.cu`` (both passes) on
     the current stream: [B, A, 3] moments of the (checked) queries, the
-    f64 sums rounded to ``out_dtype`` (float32 or float64)."""
+    f64 sums rounded to ``out_dtype`` (float32 or float64).  The launch
+    zeroes a one-int ticket on the device and hands its chunks out with
+    it."""
     b = queries.shape[0]
     num_actions = prep.num_actions
     dev = queries.device
     plan = peraction_plan(prep, qext)
     partial = torch.empty((plan.max_chunks, 3 * num_actions, _QT),
                           dtype=torch.float64, device=dev)
+    ticket = torch.empty(1, dtype=torch.int32, device=dev)
     out = torch.empty((b, 3 * num_actions), dtype=out_dtype, device=dev)
     fn = _cuda.load("peraction_moments").peraction_moments
     counts = profiling.counters("peraction_moments", dev)
@@ -500,7 +504,7 @@ def launch_peraction(prep: PreparedPerActionStore, queries: torch.Tensor,
              p(plan.s_lo.data_ptr()), p(plan.s_hi.data_ptr()),
              p(plan.off.data_ptr()), b, prep.keys_t.shape[1], prep.n_tile,
              num_actions, plan.chunk, int(out_dtype == torch.float64),
-             p(partial.data_ptr()), p(out.data_ptr()),
+             p(partial.data_ptr()), p(ticket.data_ptr()), p(out.data_ptr()),
              None if counts is None else p(counts.data_ptr()),
              p(torch.cuda.current_stream(dev).cuda_stream), ctypes.byref(grid))
     if err != 0:

@@ -34,7 +34,9 @@ dqn.py:273-286).  Here the operator's API is:
 * Counters: with the switch on, ``csrc/peraction_moments.cu`` adds up the
   (query, record) pairs it walks, the rows it matches by walking and the
   live rows it settles whole from piece sums (the last two weighted by
-  the count moment, so their sum is the count the kernel returned), and
+  the count moment, so their sum is the count the kernel returned) and
+  the (warp, live row) iterations of its walk (walked / (32 warp_rows)
+  is the walk's lane occupancy), and
   ``csrc/band_moments.cuh`` (``sorted_moments``, ``box_moments``) the
   pairs it walks and matches, into int64 totals on the device
   (:data:`COUNTERS`).  Off, each launch passes no pointer and runs the
@@ -61,7 +63,7 @@ from dcarl_tpu_torch.ops import _cuda
 # What each store-query kernel counts, in the order its C entry point
 # writes the totals.
 COUNTERS: Dict[str, Tuple[str, ...]] = {
-    "peraction_moments": ("walked", "matched", "held"),
+    "peraction_moments": ("walked", "matched", "held", "warp_rows"),
     "sorted_moments": ("walked", "matched"),
     "box_moments": ("walked", "matched"),
 }

@@ -24,8 +24,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _store(rng, n, b, dup=1, off_lattice=0):
-    d, A = 21, 11
+def _store(rng, n, b, dup=1, off_lattice=0, A=11):
+    d = 21
     centers = rng.normal(0, 4, (32, d - 1)).astype(np.float32)
     keys = np.zeros((n, d), np.float32)
     keys[:, :-1] = centers[rng.integers(0, 32, n)] + rng.normal(0, 1.0, (n, d - 1))
@@ -59,6 +59,49 @@ def test_kernel_matches_plain(cuda, n, b, dup, off):
     assert ref[..., 0].sum() > 0
     torch.testing.assert_close(got[..., 0], ref[..., 0], rtol=0, atol=0)
     torch.testing.assert_close(got[..., 1:], ref[..., 1:], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("actions", [1, 11, 16])
+def test_kernel_matches_plain_at_every_action_count(cuda, actions):
+    """The main pass is instantiated for each number of actions: at 1, the
+    fleet's 11 and the most, 16, on a store whose pieces mix every action
+    (rows sorted by band cell and second dim, actions drawn at random)."""
+    keys, values, valid, obs, w = _store(np.random.default_rng(actions),
+                                         20000, 1500, A=actions)
+    t = [torch.as_tensor(a, device=cuda) for a in (keys, values, valid, w)]
+    prep = K.prepare_peraction_store(t[0], t[1], t[2], t[3],
+                                     num_actions=actions)
+    per_piece = (prep.piece_mom[:, 0::3] > 0).sum(1)
+    assert int(per_piece.max()) == actions   # a piece holds every action
+    q = torch.as_tensor(obs, device=cuda)
+    got = K.query_peraction_prepared(prep, q)
+    torch.cuda.synchronize()
+    assert got.shape == (1500, actions, 3)
+    _check_grid("peraction_moments")
+    ref = K.peraction_moments_plain(prep, q)
+    assert bool((ref[..., 0].sum(0) > 0).all())  # every action matched
+    _check(got, ref)
+
+
+def test_kernel_f64_route_matches_plain(cuda):
+    """``out_dtype=float64`` (the sharded gated driver's route): the
+    second pass writes the f64 sums unrounded; counts exact, sums to the
+    plain version's f64 product, and rounded once they are the f32
+    route's bits."""
+    keys, values, valid, obs, w = _store(np.random.default_rng(64), 20000,
+                                         1000)
+    t = [torch.as_tensor(a, device=cuda) for a in (keys, values, valid, w)]
+    prep = K.prepare_peraction_store(t[0], t[1], t[2], t[3], num_actions=11)
+    q = torch.as_tensor(obs, device=cuda)
+    got = K.query_peraction_prepared(prep, q, out_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64
+    ref = K.peraction_moments_plain(prep, q, out_dtype=torch.float64)
+    assert ref[..., 0].sum() > 0
+    assert torch.equal(got[..., 0], ref[..., 0])
+    torch.testing.assert_close(got[..., 1:], ref[..., 1:], rtol=1e-12,
+                               atol=1e-12)
+    assert torch.equal(got.float(), K.query_peraction_prepared(prep, q))
 
 
 def test_kernel_on_a_store_with_no_live_row(cuda):
@@ -330,20 +373,63 @@ def test_peraction_kernel_long_window_over_few_tiles(cuda):
     _check(got, ref)
 
 
-def test_kernels_are_deterministic(cuda):
+def _held_only_store(rng, n, b):
+    """Rows packed within 0.05 of one state along every dim and queries
+    within 0.1 of it: every query's box holds every piece's box (the
+    narrowest obs half-width is 0.3), so every kept piece is held whole
+    and no row is walked."""
+    center = rng.normal(0, 4, 20).astype(np.float32)
+    keys = np.zeros((n, 21), np.float32)
+    keys[:, :-1] = center + rng.uniform(-0.05, 0.05, (n, 20))
+    keys[:, -1] = rng.integers(0, 11, n)
+    values = rng.normal(0, 1, n).astype(np.float32)
+    valid = rng.random(n) < 0.9
+    obs = (center + rng.uniform(-0.1, 0.1, (b, 20))).astype(np.float32)
+    return keys, values, valid, obs, np.asarray(DRIVING_HALF_WIDTHS,
+                                                np.float32)
+
+
+@pytest.mark.parametrize("store", ["mixed", "held_only", "walk_heavy"])
+def test_kernels_are_deterministic(cuda, store):
+    """Two launches give the same bits: the sorted and brute kernels, and
+    the per-action kernel on a mixed store, on one whose kept pieces are
+    all held whole and on one of runs of 50 duplicates (most pairs
+    walked); the counting instantiation gives the same bits too, and its
+    counters say which path the store took."""
+    from dcarl_tpu_torch.utils import profiling as PR
+
     arrs = _lockstep_store(np.random.default_rng(3), 1 << 15, 2000, 21)
     k, v, m, qq, w = (torch.as_tensor(a, device=cuda) for a in arrs)
     qq = qq + torch.randn(qq.shape, device=cuda) * 0.2
     for fn in (K.box_query_moments_sorted, K.box_query_moments_brute):
         a, b = fn(k, v, m, qq, w), fn(k, v, m, qq, w)
         assert a[:, 0].sum() > 0 and torch.equal(a, b)
-    keys, values, valid, obs, w = _store(np.random.default_rng(4), 20000, 3000)
+    rng = np.random.default_rng(4)
+    if store == "held_only":
+        keys, values, valid, obs, w = _held_only_store(rng, 20000, 3000)
+    else:
+        keys, values, valid, obs, w = _store(
+            rng, 20000, 3000, dup=50 if store == "walk_heavy" else 1)
     t = [torch.as_tensor(x, device=cuda) for x in (keys, values, valid, w)]
     prep = K.prepare_peraction_store(t[0], t[1], t[2], t[3], num_actions=11)
     q = torch.as_tensor(obs, device=cuda)
     a = K.query_peraction_prepared(prep, q)
     b = K.query_peraction_prepared(prep, q)
     assert a[..., 0].sum() > 0 and torch.equal(a, b)
+    PR.enable()
+    try:
+        first = PR.snapshot()["counters"]
+        counted = K.query_peraction_prepared(prep, q)
+        last = PR.snapshot()["counters"]
+    finally:
+        PR.enable(False)
+    assert torch.equal(counted, a)
+    got = {n: last[f"peraction_moments.{n}"] - first.get(
+        f"peraction_moments.{n}", 0) for n in ("walked", "held")}
+    if store == "held_only":
+        assert got["walked"] == 0 and got["held"] == int(a[..., 0].sum())
+    else:
+        assert got["walked"] > 0
 
 
 def test_malformed_records_are_rejected(cuda):

@@ -157,18 +157,25 @@ def test_the_capture_key_holds_the_switch():
     assert runner.last is off
 
 
-def test_snapshot_reads_the_totals_by_name(monkeypatch):
+@pytest.mark.parametrize("devices", [1, 2])
+def test_snapshot_reads_the_totals_by_name(monkeypatch, devices):
+    """Each counter by its name, in the kernels' layout (the per-action
+    kernel's four first), summed over the devices that hold totals."""
     tot = torch.arange(PR._N_COUNTERS, dtype=torch.int64)
-    monkeypatch.setattr(PR, "_TOTALS", {torch.device("cpu"): tot})
+    totals = {torch.device("cpu"): tot}
+    if devices == 2:
+        totals[torch.device("cpu", 0)] = tot * 100
+    monkeypatch.setattr(PR, "_TOTALS", totals)
     table = PR.PhaseTable((("plan", 0, 2),), 3)
     monkeypatch.setattr(PR, "_TABLES", {"gated": table})
     snap = PR.snapshot()
     assert snap["phases"] == {"gated": table}
-    assert snap["counters"] == {
+    scale = 1 if devices == 1 else 101
+    assert snap["counters"] == {k: i * scale for k, i in {
         "peraction_moments.walked": 0, "peraction_moments.matched": 1,
-        "peraction_moments.held": 2, "sorted_moments.walked": 3,
-        "sorted_moments.matched": 4, "box_moments.walked": 5,
-        "box_moments.matched": 6}
+        "peraction_moments.held": 2, "peraction_moments.warp_rows": 3,
+        "sorted_moments.walked": 4, "sorted_moments.matched": 5,
+        "box_moments.walked": 6, "box_moments.matched": 7}.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +305,8 @@ def test_finish_gives_the_counters_over_the_stretch(monkeypatch):
     tot += torch.arange(PR._N_COUNTERS) * 10
     out = P.finish(first, _trace(), WINDOW)
     assert out["counters"]["peraction_moments.held"] == 20
-    assert out["counters"]["box_moments.matched"] == 60
+    assert out["counters"]["peraction_moments.warp_rows"] == 30
+    assert out["counters"]["box_moments.matched"] == 70
     assert out["runners"]["gated"]["replays"] == 2
 
 
@@ -308,11 +316,14 @@ def test_finish_gives_the_counters_over_the_stretch(monkeypatch):
 
 
 def peraction_counts_plain(prep, queries):
-    """(walked, matched, held) that ``csrc/peraction_moments.cu`` counts
-    for ``queries``: for each query and each piece of a sub-slice its
-    tile keeps inside its window, the piece settled whole (its live rows'
-    count moments held) or undecided (its live rows walked, the matching
-    ones' count moments matched); the tests are the kernel's, in f32."""
+    """(walked, matched, held, warp_rows) that
+    ``csrc/peraction_moments.cu`` counts for ``queries``: for each query
+    and each piece of a sub-slice its tile keeps inside its window, the
+    piece settled whole (its live rows' count moments held) or undecided
+    (its live rows walked, the matching ones' count moments matched); the
+    tests are the kernel's, in f32.  ``warp_rows``: the live rows of each
+    walked piece, once for every warp (32 consecutive sorted queries of a
+    128-query tile) that holds a query undecided on it."""
     obs = prep.w_col.shape[0]
     dev = queries.device
     qorder, qext = K.query_operands(prep, queries)
@@ -334,14 +345,22 @@ def peraction_counts_plain(prep, queries):
     none = ((c > w) | (a < -w)).any(-1)
     piece_count = prep.piece_mom[:, 0::3].sum(1)
     held = (kept & whole).double() @ piece_count
-    walk = (kept & ~whole & ~none).repeat_interleave(K._PA_PIECE_N, dim=1) \
-        & (prep.row_act >= 0)[None]                          # [B, n_pad]
+    open_pc = kept & ~whole & ~none                          # [B, pieces]
+    live = prep.row_act >= 0
+    walk = open_pc.repeat_interleave(K._PA_PIECE_N, dim=1) \
+        & live[None]                                         # [B, n_pad]
     match = torch.ones_like(walk)
     for d in range(obs):
         match &= torch.abs(queries[qorder][:, d:d + 1]
                            - prep.keys_t[d][None]) <= prep.w_col[d]
     matched = (walk & match).double() @ prep.row_mom[0].double()
-    return int(walk.sum()), int(matched.sum()), int(held.sum())
+    pad = -b % K._QT           # dead slots of the last tile: never open
+    warp_open = torch.cat([open_pc, open_pc.new_zeros(pad, open_pc.shape[1])]
+                          ).reshape(-1, 32, open_pc.shape[1]).any(1)
+    warp_rows = warp_open.double() @ live.reshape(-1, K._PA_PIECE_N).sum(
+        1).double()
+    return (int(walk.sum()), int(matched.sum()), int(held.sum()),
+            int(warp_rows.sum()))
 
 
 def _dup_store(rng, n, b, dup):
@@ -372,10 +391,12 @@ def test_plain_counts_add_up_to_the_returned_counts(dup):
     t = [torch.as_tensor(x) for x in (keys, values, valid, w)]
     prep = K.prepare_peraction_store(*t, num_actions=11, n_tile=512)
     q = torch.as_tensor(obs)
-    walked, matched, held = peraction_counts_plain(prep, q)
+    walked, matched, held, warp_rows = peraction_counts_plain(prep, q)
     total = K.peraction_moments_plain(prep, q)[..., 0].double().sum()
     assert total > 0 and matched + held == int(total)
     assert walked > 0
+    # a warp walks a row for at most its 32 queries, and for at least one
+    assert warp_rows <= walked <= 32 * warp_rows
     if dup == 1:    # every live row weighs 1
         assert matched <= walked
 
@@ -483,9 +504,9 @@ def test_replays_number_their_phase_table_on_the_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dup", [1, 50])
 def test_kernel_counters_equal_the_plain_counts(cuda, dup):
-    """The per-action kernel's walked, matched and held counts equal the
-    plain counts at small sizes, and matched plus held equals the count
-    moments it returned; the sorted kernel's matched count equals its
+    """The per-action kernel's walked, matched, held and warp_rows counts
+    equal the plain counts at small sizes, and matched plus held equals the
+    count moments it returned; the sorted kernel's matched count equals its
     returned count, its walked count the plain one."""
     rng = np.random.default_rng(dup)
     keys, values, valid, obs, w = _dup_store(rng, 20000, 1000, dup)
@@ -498,9 +519,10 @@ def test_kernel_counters_equal_the_plain_counts(cuda, dup):
     last = PR.snapshot()["counters"]
     PR.enable(False)
     diff = {k: last[k] - first.get(k, 0) for k in last}
-    walked, matched, held = peraction_counts_plain(prep, q)
+    plain = peraction_counts_plain(prep, q)
     assert tuple(diff[f"peraction_moments.{k}"] for k in
-                 ("walked", "matched", "held")) == (walked, matched, held)
+                 ("walked", "matched", "held", "warp_rows")) == plain
+    walked, matched, held, _ = plain
     assert matched + held == int(got[..., 0].double().sum())
     assert matched > 0
 
