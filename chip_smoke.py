@@ -1753,9 +1753,9 @@ def lane_phase(sk, _cuda, gpu: str, dev, sizes=LANE_SIZES) -> dict:
 
     1. rule run: ``to_multilane_state -> lateral_decision ->
        step_autoreset`` (the field loop of tests/test_lane_stack.py:152);
-    2. store fill: ``StoreConfig()``'s 2^17-row store from a behaviour
-       policy (action 0, the rule, with probability 0.5, else uniform in
-       1-7), records ``wrap_state || action`` with their n-step returns
+    2. store fill (``planning/lane_rollout.fill_lane_store``):
+       ``StoreConfig()``'s 2^17-row store from a behaviour policy (action
+       0, the rule, with probability 0.5, else uniform in 1-7), records ``wrap_state || action`` with their n-step returns
        (``traj_push_lane``, reward 1 a surviving tick), the ring wrapping
        once;
     3. gated run: ``wrap_state -> all_action_stats -> act_test ->
@@ -1774,6 +1774,7 @@ def lane_phase(sk, _cuda, gpu: str, dev, sizes=LANE_SIZES) -> dict:
     from dcarl_tpu_torch.core import store as ST
     from dcarl_tpu_torch.env import multilane_env as ML
     from dcarl_tpu_torch.planning import decision as DEC
+    from dcarl_tpu_torch.planning.lane_rollout import fill_lane_store
     from dcarl_tpu_torch.planning.lane_utility import lateral_decision
 
     cuda = dev.type == "cuda"
@@ -1812,36 +1813,13 @@ def lane_phase(sk, _cuda, gpu: str, dev, sizes=LANE_SIZES) -> dict:
     if not torch.isfinite(st.ego_s).all() or int(c_rule["done"]) == 0:
         fail("lane rule run: non-finite state or no episode ended")
 
-    # 2. the store fill
+    # 2. the store fill (the port's fill_lane_store)
     fb, ft = sizes["fill_envs"], sizes["fill_ticks"]
-    ncfg = StoreConfig(value_mode="nstep")
-    w = ncfg.n_step_window
     cap = sizes["capacity"]          # StoreConfig().capacity at full size
-    store = ST.store_init(cap, scfg.key_dim, device=dev)
-    st = ML.reset(fb, gen, cfg, device=dev)
-    buf = (torch.zeros((w, scfg.key_dim - 1, fb), device=dev),
-           torch.zeros((w, fb), device=dev), torch.zeros((w, fb), device=dev),
-           torch.zeros((fb,), dtype=torch.int32, device=dev))
-    inserted = torch.zeros((), dtype=torch.int64, device=dev)
-    rule_taken = torch.zeros((), dtype=torch.int64, device=dev)
     sync(dev)
     t0 = time.perf_counter()
-    for _ in range(ft):
-        m = ML.to_multilane_state(st, cfg)
-        obs = DEC.wrap_state(m)
-        rule = torch.rand((fb,), generator=gen, device=dev) < 0.5
-        a = torch.where(rule, 0, torch.randint(1, n_act, (fb,), generator=gen,
-                                               device=dev))
-        d = DEC.decision_from_discrete_action(m, a)
-        st, r, done = ML.step_autoreset(st, d.target_lane_index,
-                                        d.target_speed, gen, cfg)
-        buf, recs = RLS.traj_push_lane(*buf, obs.T, a, r, done, ncfg)
-        store = ST.store_insert(
-            store, recs.keys.permute(0, 2, 1).reshape(-1, scfg.key_dim),
-            recs.actions.reshape(-1), recs.values.reshape(-1),
-            recs.valid.reshape(-1))
-        inserted += recs.valid.sum()
-        rule_taken += rule.sum()
+    store, inserted = fill_lane_store(cfg, StoreConfig(value_mode="nstep"),
+                                      fb, ft, cap, SEED + 33, dev)
     sync(dev)
     fill_s = time.perf_counter() - t0
     valid = ST.store_valid(store)
@@ -1941,7 +1919,6 @@ def lane_phase(sk, _cuda, gpu: str, dev, sizes=LANE_SIZES) -> dict:
                            **rates(c_rule, b * t)),
          fill=dict(envs=fb, ticks=ft, seconds=fill_s, records=int(inserted),
                    store_rows=int(store.size), capacity=cap,
-                   rule_share=float(rule_taken) / (fb * ft),
                    value_mean=float(vals.mean()), value_min=float(vals.min()),
                    value_max=float(vals.max())),
          gate=dict(envs=gb, ticks=gt, queries_per_launch=int(keys0.shape[0]),

@@ -8,7 +8,9 @@ it launches the kernel or raises):
 * ``peraction_moments`` (gated driver, below);
 * ``sorted_moments``, ``[Q, 3]`` moments against band-sorted rows with
   a sub-slice band prune: the flat :func:`box_query_moments_sorted`
-  (``core/store.py::box_query_stats``) and the action-grouped
+  (``core/store.py::box_query_stats``; :func:`prepare_sorted_store` and
+  :func:`query_sorted_prepared` for a store that many batches ask, the
+  lane gate's) and the action-grouped
   :func:`box_query_moments_grouped` (the trainer's rule-column query);
 * ``box_moments``, the unpruned brute-force ``[Q, 3]`` baseline
   (:func:`box_query_moments_brute`).
@@ -607,11 +609,29 @@ class SortedOperands(NamedTuple):
     w0: torch.Tensor      # [1] f32 band half-width of the prune
 
 
-def _sorted_operands(keys_s, vals_s, valid_s, sk_s, q_s, qk_s, w, w0,
-                     sort_dims) -> SortedOperands:
-    """Pad and lay out rows and queries already in band order; the
-    extrema are taken over the same f32 values the kernel compares.
-    ``sort_dims`` are the key dims the band key is made of (tested last)."""
+class PreparedSortedStore(NamedTuple):
+    """Store side of the flat sorted-band query
+    (:func:`prepare_sorted_store`): everything that depends on the rows
+    alone, made once for a store that many batches of queries ask."""
+
+    sdim: "torch.Tensor | None"  # [] i64 band dim, the most selective
+    #                              (None on the grouped route, whose band
+    #                              key is composite)
+    keys_t: torch.Tensor  # [D, n_pad] f32 rows, band order; padding _PAD
+    vals: torch.Tensor    # [n_pad] f32 (0 on padding)
+    valid: torch.Tensor   # [n_pad] f32 1 / 0 (0 on padding)
+    rows: torch.Tensor    # [n_pad, record_floats(D)] f32 row records
+    perm: torch.Tensor    # [D] i32 key dim of record slot d
+    kb: torch.Tensor      # [2, n_pad / 256] band-key extrema per sub-slice
+    w: torch.Tensor       # [D] f32 half-widths
+    w0: torch.Tensor      # [1] f32 band half-width of the prune
+
+
+def _sorted_rows(keys_s, vals_s, valid_s, sk_s, w, w0, sort_dims,
+                 sdim=None) -> PreparedSortedStore:
+    """Pad and lay out rows already in band order; the extrema are taken
+    over the same f32 values the kernel compares.  ``sort_dims`` are the
+    key dims the band key is made of (tested last)."""
     n, d = keys_s.shape
     dev = keys_s.device
     n_pad = _round_up(max(n, _SSUB_N), _SSUB_N)
@@ -623,16 +643,25 @@ def _sorted_operands(keys_s, vals_s, valid_s, sk_s, q_s, qk_s, w, w0,
     valid[:n] = valid_s.to(torch.float32)
     ks_p = torch.full((n_pad,), _PAD, dtype=torch.float32, device=dev)
     ks_p[:n] = sk_s
+    perm = _dim_order(keys_s, valid_s, w, sort_dims)
+    return PreparedSortedStore(
+        sdim=sdim, keys_t=keys_t, vals=vals, valid=valid,
+        rows=_band_rows(keys_t, vals, valid, perm), perm=perm,
+        kb=_extrema(ks_p, _SSUB_N), w=w.contiguous(),
+        w0=w0.reshape(1).contiguous())
+
+
+def _with_queries(prep: PreparedSortedStore, q_s, qk_s) -> SortedOperands:
+    """The operands of queries already in band order (``qk_s`` their band
+    keys) against prepared rows."""
     q = q_s.shape[0]
     pad = _round_up(q, _SQT) - q
     # pad by repeating the last sorted query: the extrema stay exact
     qk_p = torch.cat([qk_s, qk_s[-1:].expand(pad)])
-    perm = _dim_order(keys_s, valid_s, w, sort_dims)
     return SortedOperands(
-        q_t=q_s.T.contiguous(), keys_t=keys_t, vals=vals, valid=valid,
-        rows=_band_rows(keys_t, vals, valid, perm), perm=perm,
-        kb=_extrema(ks_p, _SSUB_N), qb=_extrema(qk_p, _SQT),
-        w=w.contiguous(), w0=w0.reshape(1).contiguous())
+        q_t=q_s.T.contiguous(), keys_t=prep.keys_t, vals=prep.vals,
+        valid=prep.valid, rows=prep.rows, perm=prep.perm, kb=prep.kb,
+        qb=_extrema(qk_p, _SQT), w=prep.w, w0=prep.w0)
 
 
 def sorted_prune_keep(ops: SortedOperands) -> torch.Tensor:
@@ -753,15 +782,18 @@ def sorted_moments(ops: SortedOperands) -> torch.Tensor:
     return launch_sorted(ops)
 
 
-def sorted_query_operands(keys, values, valid, queries, half_widths
-                          ) -> Tuple[SortedOperands, torch.Tensor]:
-    """Band order of the flat query: the band dim is the most selective
-    one, ``argmax(spread / w)`` with spread the mean |x - mean| of the
-    valid rows.  Returns the operands and ``qorder`` [Q] (band position
-    -> query row)."""
+def prepare_sorted_store(keys: torch.Tensor,         # [N, D]
+                         values: torch.Tensor,       # [N]
+                         valid: torch.Tensor,        # [N] bool
+                         half_widths: torch.Tensor,  # [D]
+                         ) -> PreparedSortedStore:
+    """The store side of the flat query: the band dim is the most
+    selective one, ``argmax(spread / w)`` with spread the mean |x - mean|
+    of the valid rows; the rows sorted by it (invalid rows last), padded
+    and laid out as the kernel reads them.  A loop whose store is fixed
+    makes it once and asks it with :func:`query_sorted_prepared`."""
     keys = keys.to(torch.float32)
     values = values.to(keys.device, torch.float32)
-    queries = queries.to(torch.float32)
     w = half_widths.to(keys.device, torch.float32)
     vf = valid.to(torch.float32)
     cnt = torch.clamp(vf.sum(), min=1.0)
@@ -769,15 +801,42 @@ def sorted_query_operands(keys, values, valid, queries, half_widths
     spread = (vf[:, None] * torch.abs(keys - mean_d)).sum(0) / cnt
     sdim = torch.argmax(spread / torch.clamp(w, min=1e-9))
     w0 = w.index_select(0, sdim.reshape(1))
-
     sk = torch.where(valid, _index_dim(keys, sdim), _PAD)
     order = torch.argsort(sk, stable=True)
-    qk = _index_dim(queries, sdim)
+    return _sorted_rows(keys[order], values[order], valid[order], sk[order],
+                        w, w0, (sdim,), sdim)
+
+
+def prepared_query_operands(prep: PreparedSortedStore, queries: torch.Tensor
+                            ) -> Tuple[SortedOperands, torch.Tensor]:
+    """The operands of the flat queries [Q, D] against a prepared store,
+    in band order, and ``qorder`` [Q] (band position -> query row)."""
+    queries = queries.to(torch.float32)
+    qk = _index_dim(queries, prep.sdim)
     qorder = torch.argsort(qk, stable=True)
-    ops = _sorted_operands(keys[order], values[order], valid[order],
-                           sk[order], queries[qorder], qk[qorder], w, w0,
-                           (sdim,))
-    return ops, qorder
+    return _with_queries(prep, queries[qorder], qk[qorder]), qorder
+
+
+def sorted_query_operands(keys, values, valid, queries, half_widths
+                          ) -> Tuple[SortedOperands, torch.Tensor]:
+    """Band order of the flat query (:func:`prepare_sorted_store`, then
+    :func:`prepared_query_operands`).  Returns the operands and
+    ``qorder`` [Q] (band position -> query row)."""
+    return prepared_query_operands(
+        prepare_sorted_store(keys, values, valid, half_widths), queries)
+
+
+def query_sorted_prepared(prep: PreparedSortedStore, queries: torch.Tensor
+                          ) -> torch.Tensor:
+    """[Q, 3] f32 moments of the flat queries [Q, D] against a prepared
+    store, in the queries' own order: their band sort, the plan, the
+    launch (the plain version for CPU tensors) and the un-sort, with no
+    host synchronisation (a captured tick can hold it)."""
+    if queries.shape[0] == 0:
+        return torch.zeros((0, 3), device=queries.device)
+    ops, qorder = prepared_query_operands(prep, queries)
+    out = sorted_moments(ops)
+    return torch.empty_like(out).index_copy_(0, qorder, out)   # un-sort
 
 
 def box_query_moments_sorted(keys: torch.Tensor,         # [N, D]
@@ -788,13 +847,12 @@ def box_query_moments_sorted(keys: torch.Tensor,         # [N, D]
                              ) -> torch.Tensor:
     """[Q, 3] f32 moments (count, sum v, sum v^2) of the valid rows whose
     boxes contain each query, through the sorted-band kernel
-    (``pallas_store.py::box_query_moments_sorted``)."""
+    (``pallas_store.py::box_query_moments_sorted``): the store prepared,
+    then queried."""
     if queries.shape[0] == 0:
         return torch.zeros((0, 3), device=queries.device)
-    ops, qorder = sorted_query_operands(keys, values, valid, queries,
-                                        half_widths)
-    out = sorted_moments(ops)
-    return torch.empty_like(out).index_copy_(0, qorder, out)   # un-sort
+    return query_sorted_prepared(
+        prepare_sorted_store(keys, values, valid, half_widths), queries)
 
 
 def grouped_query_operands(keys, values, valid, queries, half_widths,
@@ -835,11 +893,10 @@ def grouped_query_operands(keys, values, valid, queries, half_widths,
         w0 = w0 + 32.0 * c * 1.2e-7
     sk = torch.where(valid, row_band, _PAD)
     order = torch.argsort(sk, stable=True)
-    ops = _sorted_operands(keys[order], values[order], valid[order],
-                           sk[order], queries.reshape(a * qa, d), q_band,
-                           w, w0, (sdim,) if band_dim is None
-                           else (band_dim % d, sdim))
-    return ops, qorder
+    prep = _sorted_rows(keys[order], values[order], valid[order], sk[order],
+                        w, w0, (sdim,) if band_dim is None
+                        else (band_dim % d, sdim))
+    return _with_queries(prep, queries.reshape(a * qa, d), q_band), qorder
 
 
 def box_query_moments_grouped(keys: torch.Tensor,         # [N, D]

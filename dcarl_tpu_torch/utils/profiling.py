@@ -19,8 +19,9 @@ dqn.py:273-286).  Here the operator's API is:
   kernels.  ``TickRunner`` opens ``dcarl.load`` (the copy into its static
   buffers), ``dcarl.capture`` (the warm-up tick and the capture),
   ``dcarl.replay.<runner>`` (a call's whole replay loop) and
-  ``dcarl.result`` (the result's copies); the gated driver opens
-  ``dcarl.store_prepare`` around a call's store prepare.
+  ``dcarl.result`` (the result's copies); the gated drivers (runners
+  ``gated`` and ``lane``) open ``dcarl.store_prepare`` around a call's
+  store prepare.
 * :func:`phase`: a named part of a tick function (``plan``, ``query``,
   ...).  While a ``TickRunner`` captures, entering and leaving a phase
   records how many device-activity nodes (kernel, memcpy, memset) the

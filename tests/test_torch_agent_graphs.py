@@ -31,6 +31,7 @@ tests/test_torch_agent_graphs.py -m cuda``.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu_torch import config as tcfg
 from dcarl_tpu_torch.bridge import agent_session as AS

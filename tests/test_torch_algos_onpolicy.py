@@ -25,6 +25,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu.algos import a2c as JA2C
 from dcarl_tpu.algos import acer as JACER

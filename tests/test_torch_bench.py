@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu.core.store import FIELD_HALF_WIDTHS, _raw_moments
 from dcarl_tpu_torch import bench

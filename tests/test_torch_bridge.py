@@ -31,6 +31,7 @@ import numpy as np
 from flax import linen as nn
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu.config import DQNConfig as JDQNConfig
 from dcarl_tpu.config import StoreConfig as JStoreConfig

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu.core import store as jstore
 from dcarl_tpu.utils import checkpoint as jckpt

@@ -15,6 +15,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu_torch.algos import acer as ACER
 from dcarl_tpu_torch.algos import her as HER

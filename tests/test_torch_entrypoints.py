@@ -31,6 +31,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu_torch import cli
 from torch_algos_jax import one_torch_thread  # noqa: F401 (fixture)

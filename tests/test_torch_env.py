@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 import dcarl_tpu.config as jcfg
 from dcarl_tpu.env import driving_env as jde

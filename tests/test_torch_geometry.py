@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu.env.scenario import t_intersection as j_t_intersection
 from dcarl_tpu.ops import geometry as JG

@@ -10,6 +10,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu.utils import field_analysis as JFA
 from dcarl_tpu.utils import logging as JL

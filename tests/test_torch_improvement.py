@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu import improvement as jimp
 from dcarl_tpu.planning import fast_rollout as jfr

@@ -12,6 +12,7 @@ the plain versions (counts exact, sums within rtol 1e-4 / atol 1e-3)."""
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu_torch.config import DRIVING_HALF_WIDTHS
 from dcarl_tpu_torch.ops import store_kernels as K

@@ -7,6 +7,7 @@ CPU or interpret mode).  On a machine with an H100 and ``nvcc``:
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu_torch import disable_tf32
 from dcarl_tpu_torch.config import DRIVING_HALF_WIDTHS

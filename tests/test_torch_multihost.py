@@ -25,6 +25,7 @@ import sys
 
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu_torch import config as tcfg
 from dcarl_tpu_torch import improvement as timp

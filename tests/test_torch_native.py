@@ -10,6 +10,7 @@ import shutil
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu.utils import native as JNV
 from dcarl_tpu_torch.core import store as S

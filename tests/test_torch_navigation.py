@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu.cognition import EgoPose, update_map_state
 from dcarl_tpu.cognition.locator import TrackedObjects

@@ -16,6 +16,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 

@@ -23,6 +23,7 @@ import tempfile
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_bench import program_trace as P
 from dcarl_tpu_torch import config as tcfg

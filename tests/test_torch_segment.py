@@ -37,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu import config as jcfg
 from dcarl_tpu.models import segment as JSEG

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu.config import DRIVING_HALF_WIDTHS, StoreConfig as JStoreConfig
 from dcarl_tpu.core import rls as JR

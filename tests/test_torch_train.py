@@ -21,6 +21,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu import config as jcfg
 from dcarl_tpu.parallel.mesh import make_mesh

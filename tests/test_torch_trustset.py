@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu.config import DQNConfig as JDQNConfig
 from dcarl_tpu.models import dqn as JDQ

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu.control import calibration as JCAL
 from dcarl_tpu.parallel import vec_env as JV

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu import workingset as JWS
 from dcarl_tpu.config import EnvConfig as JEnvConfig
