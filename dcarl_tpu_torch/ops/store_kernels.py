@@ -11,7 +11,12 @@ it launches the kernel or raises):
   (``core/store.py::box_query_stats``; :func:`prepare_sorted_store` and
   :func:`query_sorted_prepared` for a store that many batches ask, the
   lane gate's) and the action-grouped
-  :func:`box_query_moments_grouped` (the trainer's rule-column query);
+  :func:`box_query_moments_grouped` (the trainer's rule-column query).
+  Both band on a composite key where the store allows it: the grouped
+  route on (action, ``band_dim``); the flat route on (its most selective
+  dim, the next most selective one) where the first is discrete (half-width
+  < 0.5, integer keys in every valid row: a candidate action), else on
+  the most selective dim alone (:func:`prepare_sorted_store`);
 * ``box_moments``, the unpruned brute-force ``[Q, 3]`` baseline
   (:func:`box_query_moments_brute`).
 
@@ -612,11 +617,13 @@ class SortedOperands(NamedTuple):
 class PreparedSortedStore(NamedTuple):
     """Store side of the flat sorted-band query
     (:func:`prepare_sorted_store`): everything that depends on the rows
-    alone, made once for a store that many batches of queries ask."""
+    alone, made once for a store that many batches of queries ask.  The
+    flat route's band key is ``key[sdim]``, or, where ``composite`` holds,
+    ``round(key[sdim]) * comp_c + key[sdim2]``; the grouped route, whose
+    band key is its own composite, leaves the band-key fields None."""
 
-    sdim: "torch.Tensor | None"  # [] i64 band dim, the most selective
-    #                              (None on the grouped route, whose band
-    #                              key is composite)
+    sdim: "torch.Tensor | None"  # [] i64 primary band dim, the most
+    #                              selective
     keys_t: torch.Tensor  # [D, n_pad] f32 rows, band order; padding _PAD
     vals: torch.Tensor    # [n_pad] f32 (0 on padding)
     valid: torch.Tensor   # [n_pad] f32 1 / 0 (0 on padding)
@@ -624,14 +631,21 @@ class PreparedSortedStore(NamedTuple):
     perm: torch.Tensor    # [D] i32 key dim of record slot d
     kb: torch.Tensor      # [2, n_pad / 256] band-key extrema per sub-slice
     w: torch.Tensor       # [D] f32 half-widths
-    w0: torch.Tensor      # [1] f32 band half-width of the prune
+    w0: torch.Tensor      # [1] f32 band half-width of the prune (on the
+    #                       composite key, before the queries' share)
+    sdim2: "torch.Tensor | None" = None      # [] i64 composite key's
+    #                                          second dim
+    composite: "torch.Tensor | None" = None  # [] bool: band on the
+    #                                          composite key
+    comp_c: "torch.Tensor | None" = None     # [] f32 its c
 
 
-def _sorted_rows(keys_s, vals_s, valid_s, sk_s, w, w0, sort_dims,
-                 sdim=None) -> PreparedSortedStore:
+def _sorted_rows(keys_s, vals_s, valid_s, sk_s, w, w0, perm, sdim=None,
+                 **band) -> PreparedSortedStore:
     """Pad and lay out rows already in band order; the extrema are taken
-    over the same f32 values the kernel compares.  ``sort_dims`` are the
-    key dims the band key is made of (tested last)."""
+    over the same f32 values the kernel compares.  ``perm`` is the
+    records' dim order (:func:`_dim_order`); ``sdim`` and ``band`` are
+    the flat route's band-key fields."""
     n, d = keys_s.shape
     dev = keys_s.device
     n_pad = _round_up(max(n, _SSUB_N), _SSUB_N)
@@ -643,17 +657,18 @@ def _sorted_rows(keys_s, vals_s, valid_s, sk_s, w, w0, sort_dims,
     valid[:n] = valid_s.to(torch.float32)
     ks_p = torch.full((n_pad,), _PAD, dtype=torch.float32, device=dev)
     ks_p[:n] = sk_s
-    perm = _dim_order(keys_s, valid_s, w, sort_dims)
     return PreparedSortedStore(
         sdim=sdim, keys_t=keys_t, vals=vals, valid=valid,
         rows=_band_rows(keys_t, vals, valid, perm), perm=perm,
         kb=_extrema(ks_p, _SSUB_N), w=w.contiguous(),
-        w0=w0.reshape(1).contiguous())
+        w0=w0.reshape(1).contiguous(), **band)
 
 
-def _with_queries(prep: PreparedSortedStore, q_s, qk_s) -> SortedOperands:
+def _with_queries(prep: PreparedSortedStore, q_s, qk_s, w0=None
+                  ) -> SortedOperands:
     """The operands of queries already in band order (``qk_s`` their band
-    keys) against prepared rows."""
+    keys) against prepared rows, with the band half-width ``w0`` [1]
+    (the store's by default)."""
     q = q_s.shape[0]
     pad = _round_up(q, _SQT) - q
     # pad by repeating the last sorted query: the extrema stay exact
@@ -661,7 +676,8 @@ def _with_queries(prep: PreparedSortedStore, q_s, qk_s) -> SortedOperands:
     return SortedOperands(
         q_t=q_s.T.contiguous(), keys_t=prep.keys_t, vals=prep.vals,
         valid=prep.valid, rows=prep.rows, perm=prep.perm, kb=prep.kb,
-        qb=_extrema(qk_p, _SQT), w=prep.w, w0=prep.w0)
+        qb=_extrema(qk_p, _SQT), w=prep.w,
+        w0=prep.w0 if w0 is None else w0)
 
 
 def sorted_prune_keep(ops: SortedOperands) -> torch.Tensor:
@@ -787,34 +803,107 @@ def prepare_sorted_store(keys: torch.Tensor,         # [N, D]
                          valid: torch.Tensor,        # [N] bool
                          half_widths: torch.Tensor,  # [D]
                          ) -> PreparedSortedStore:
-    """The store side of the flat query: the band dim is the most
-    selective one, ``argmax(spread / w)`` with spread the mean |x - mean|
-    of the valid rows; the rows sorted by it (invalid rows last), padded
-    and laid out as the kernel reads them.  A loop whose store is fixed
-    makes it once and asks it with :func:`query_sorted_prepared`."""
+    """The store side of the flat query: the rows sorted by their band
+    key (invalid rows last), padded and laid out as the kernel reads
+    them.  A loop whose store is fixed makes it once and asks it with
+    :func:`query_sorted_prepared`.
+
+    The primary dim ``a`` is the most selective one, ``argmax(spread /
+    w)`` with spread the mean |x - mean| of the valid rows.  Where ``a``
+    is discrete (``w[a] < 0.5`` and every valid row's key in ``a`` an
+    integer), the band key is the composite ``round(k_a) * c + k_s``,
+    with ``s`` the most selective other dim and ``c = 4 (max |k_s| + w_s
+    + 1)`` over the valid rows' real ``s`` keys (sentinel-scale ones,
+    ``|k| >= _PAD / 2``, left out); otherwise it is ``k_a``.  The choice
+    is made on the device, with no host synchronisation.  The composite
+    prune is exact for any query: a row can match ``q`` only if ``k_a =
+    round(q_a)``, so every contained pair lies within ``w_s`` of its
+    query on the composite key, and the band half-width adds the f32
+    rounding of the largest composite key the rows and each batch of
+    queries reach (:func:`prepared_query_operands`).  With tracing on
+    (``utils/profiling``) it counts itself, and whether it took the
+    composite key, into ``sorted_prepare``."""
     keys = keys.to(torch.float32)
-    values = values.to(keys.device, torch.float32)
-    w = half_widths.to(keys.device, torch.float32)
+    dev = keys.device
+    values = values.to(dev, torch.float32)
+    w = half_widths.to(dev, torch.float32)
+    d = keys.shape[1]
     vf = valid.to(torch.float32)
     cnt = torch.clamp(vf.sum(), min=1.0)
     mean_d = (vf[:, None] * keys).sum(0) / cnt
     spread = (vf[:, None] * torch.abs(keys - mean_d)).sum(0) / cnt
-    sdim = torch.argmax(spread / torch.clamp(w, min=1e-9))
+    sel = spread / torch.clamp(w, min=1e-9)
+    sdim = torch.argmax(sel)
+    sdim2 = torch.argmax(sel.index_fill(0, sdim.reshape(1), -1.0))
     w0 = w.index_select(0, sdim.reshape(1))
-    sk = torch.where(valid, _index_dim(keys, sdim), _PAD)
+    w_s = w.index_select(0, sdim2.reshape(1))
+    k_a, k_s = _index_dim(keys, sdim), _index_dim(keys, sdim2)
+    composite = ((w0[0] < 0.5) & ((torch.round(k_a) == k_a) | ~valid).all()
+                 & (d > 1))
+    real_s = valid & (torch.abs(k_s) < _PAD / 2)
+    c = 4.0 * (_max0(torch.where(real_s, torch.abs(k_s), 0.0)) + w_s[0]
+               + 1.0)
+    comp = _composite_key(k_a, k_s, c)
+    reach = _max0(torch.where(real_s & (torch.abs(k_a) < _PAD / 2),
+                              torch.abs(comp), 0.0))
+    sk = torch.where(valid, torch.where(composite, comp, k_a), _PAD)
     order = torch.argsort(sk, stable=True)
-    return _sorted_rows(keys[order], values[order], valid[order], sk[order],
-                        w, w0, (sdim,), sdim)
+    keys_s, valid_s = keys[order], valid[order]
+    # the band dims are tested last: the prune has already bounded them
+    perm = torch.where(composite, _dim_order(keys_s, valid_s, w, (sdim2, sdim)),
+                       _dim_order(keys_s, valid_s, w, (sdim,)))
+    counts = profiling.counters("sorted_prepare", dev)
+    if counts is not None:
+        counts[:1].add_(1)
+        counts[1:].add_(composite.to(torch.int64))
+    return _sorted_rows(keys_s, values[order], valid_s, sk[order], w,
+                        torch.where(composite, _composite_w0(w_s, reach), w0),
+                        perm, sdim=sdim, sdim2=sdim2, composite=composite,
+                        comp_c=c)
+
+
+def _max0(x: torch.Tensor) -> torch.Tensor:
+    """[] the largest of ``x`` and 0 (0 for an empty ``x``)."""
+    return torch.cat([x.reshape(-1), x.new_zeros(1)]).amax()
+
+
+def _composite_key(k_a: torch.Tensor, k_s: torch.Tensor, c: torch.Tensor
+                   ) -> torch.Tensor:
+    """The flat route's composite band key ``round(k_a) * c + k_s`` in
+    f32, rows and queries alike: a row and a query with the same
+    ``round(k_a)`` share the product bit for bit."""
+    return torch.round(k_a) * c + k_s
+
+
+_ROUND_PAD = 2.0 ** -21  # 8x f32's half ulp, relative
+
+
+def _composite_w0(w_s: torch.Tensor, reach: torch.Tensor) -> torch.Tensor:
+    """[1] the rows' part of the composite prune's band half-width:
+    ``w_s`` plus ``_ROUND_PAD`` of the largest magnitude a contained
+    pair's keys and the band test's sum reach, the rows' ``reach`` plus
+    ``2 w_s + 1``; each batch of queries adds its own reach
+    (:func:`prepared_query_operands`).  That covers the half-ulp roundings
+    of both keys and of the sum, so rounding only loosens the prune."""
+    return w_s + (reach + 2.0 * w_s + 1.0) * _ROUND_PAD
 
 
 def prepared_query_operands(prep: PreparedSortedStore, queries: torch.Tensor
                             ) -> Tuple[SortedOperands, torch.Tensor]:
     """The operands of the flat queries [Q, D] against a prepared store,
-    in band order, and ``qorder`` [Q] (band position -> query row)."""
+    in band order, and ``qorder`` [Q] (band position -> query row).  On
+    the composite key the band half-width adds ``_ROUND_PAD`` of the
+    queries' largest |key| to the store's (a contained pair's row key
+    lies within ``w_s`` of its query's); a NaN query matches nothing and
+    adds nothing."""
     queries = queries.to(torch.float32)
     qk = _index_dim(queries, prep.sdim)
+    comp = _composite_key(qk, _index_dim(queries, prep.sdim2), prep.comp_c)
+    reach = torch.nan_to_num(torch.abs(comp), nan=0.0).amax()
+    w0 = prep.w0 + torch.where(prep.composite, reach, 0.0) * _ROUND_PAD
+    qk = torch.where(prep.composite, comp, qk)
     qorder = torch.argsort(qk, stable=True)
-    return _with_queries(prep, queries[qorder], qk[qorder]), qorder
+    return _with_queries(prep, queries[qorder], qk[qorder], w0), qorder
 
 
 def sorted_query_operands(keys, values, valid, queries, half_widths
@@ -893,9 +982,11 @@ def grouped_query_operands(keys, values, valid, queries, half_widths,
         w0 = w0 + 32.0 * c * 1.2e-7
     sk = torch.where(valid, row_band, _PAD)
     order = torch.argsort(sk, stable=True)
-    prep = _sorted_rows(keys[order], values[order], valid[order], sk[order],
-                        w, w0, (sdim,) if band_dim is None
-                        else (band_dim % d, sdim))
+    keys_s, valid_s = keys[order], valid[order]
+    prep = _sorted_rows(keys_s, values[order], valid_s, sk[order], w, w0,
+                        _dim_order(keys_s, valid_s, w,
+                                   (sdim,) if band_dim is None
+                                   else (band_dim % d, sdim)))
     return _with_queries(prep, queries.reshape(a * qa, d), q_band), qorder
 
 

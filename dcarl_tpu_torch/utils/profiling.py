@@ -41,7 +41,10 @@ dqn.py:273-286).  Here the operator's API is:
   ``csrc/band_moments.cuh`` (``sorted_moments``, ``box_moments``) the
   pairs it walks and matches, into int64 totals on the device
   (:data:`COUNTERS`).  Off, each launch passes no pointer and runs the
-  instantiation without counters.
+  instantiation without counters.  ``ops/store_kernels.py``'s
+  ``prepare_sorted_store`` adds one to ``sorted_prepare.prepares`` a
+  call, and to ``sorted_prepare.composite`` when it bands on the
+  composite (action, second dim) key, with device adds.
 * :func:`snapshot`: the registered phase tables and the counter totals
   (one host read, made only when asked).
 * :func:`trace`: a ``torch.profiler`` Chrome trace of a block, written
@@ -62,11 +65,12 @@ import torch
 from dcarl_tpu_torch.ops import _cuda
 
 # What each store-query kernel counts, in the order its C entry point
-# writes the totals.
+# writes the totals, and last what the flat route's store prepare counts.
 COUNTERS: Dict[str, Tuple[str, ...]] = {
     "peraction_moments": ("walked", "matched", "held", "warp_rows"),
     "sorted_moments": ("walked", "matched"),
     "box_moments": ("walked", "matched"),
+    "sorted_prepare": ("prepares", "composite"),
 }
 _OFFSET: Dict[str, int] = {}   # kernel -> its first slot in the totals
 _N_COUNTERS = 0
@@ -164,9 +168,10 @@ def capture_nodes(stream: "torch.cuda.Stream") -> int:
 
 
 def counters(kernel: str, device: torch.device) -> Optional[torch.Tensor]:
-    """The int64 device totals a launch of ``kernel`` on ``device`` adds
-    its counts to (:data:`COUNTERS` ``[kernel]``, in order); None when off
-    or off a CUDA device (the launch then counts nothing)."""
+    """The int64 device totals a launch of ``kernel`` (or the step named
+    so in :data:`COUNTERS`) on ``device`` adds its counts to
+    (:data:`COUNTERS` ``[kernel]``, in order); None when off or off a
+    CUDA device (the launch then counts nothing)."""
     if not _ON or device.type != "cuda":
         return None
     if device.index is None:

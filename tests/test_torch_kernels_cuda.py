@@ -11,6 +11,7 @@ import torch_threads  # noqa: F401 (caps intra-op threads under xdist)
 
 from dcarl_tpu_torch import disable_tf32
 from dcarl_tpu_torch.config import DRIVING_HALF_WIDTHS
+from dcarl_tpu_torch.core.store import FIELD_HALF_WIDTHS
 from dcarl_tpu_torch.ops import _cuda
 from dcarl_tpu_torch.ops import store_kernels as K
 
@@ -486,3 +487,88 @@ def test_full_and_masked_stores_agree_bit_for_bit(cuda):
     assert torch.equal(got, K.peraction_moments_plain(full, q))
     wide = K.query_peraction_prepared(full, q, out_dtype=torch.float64)
     assert wide.dtype == torch.float64 and torch.equal(wide.float(), got)
+
+
+def _lane_store(rng, n, b):
+    """Lane-shaped rows: 20 clustered state dims at the field's
+    half-widths (dim 1 the 0/1 ego lane), an integer action 0-7 in dim 20
+    at w 0.1, a tenth invalid; and the 8 candidate keys of ``b`` states
+    near the rows."""
+    w = np.asarray(FIELD_HALF_WIDTHS, np.float32)
+    centers = rng.normal(0, 1, (64, 21)) * w * 6
+    keys = (centers[rng.integers(0, 64, n)]
+            + rng.normal(0, 1, (n, 21)) * w).astype(np.float32)
+    keys[:, 1] = rng.integers(0, 2, n)
+    keys[:, -1] = rng.integers(0, 8, n)
+    values = rng.normal(0, 1, n).astype(np.float32)
+    valid = rng.random(n) < 0.9
+    near = rng.integers(0, n, b)
+    obs = (keys[near, :20] + rng.normal(0, 0.5, (b, 20)) * w[:20])
+    obs[:, 1] = keys[near, 1]
+    queries = np.concatenate([np.repeat(obs, 8, 0), np.tile(
+        np.arange(8), b)[:, None]], 1).astype(np.float32)
+    return keys, values, valid, queries, w
+
+
+def test_sorted_kernel_on_the_composite_band(cuda):
+    """Lane-shaped operands (2^15 rows, the 8 candidate keys of 2,048
+    states): the prepare bands on (action, second dim) and the kernel
+    equals its plain version; with tracing on, the prepare counts a
+    composite prepare and the kernel walks under half the pairs it walks
+    on the flat key (one valid row's action off the integers); a CUDA
+    graph of ``query_sorted_prepared`` replays bit-equal to the eager
+    call, for its captured queries and for new ones copied in (the query
+    holds no host synchronisation)."""
+    from dcarl_tpu_torch.utils import profiling as PR
+
+    rng = np.random.default_rng(20)
+    keys, values, valid, queries, w = _lane_store(rng, 1 << 15, 2048)
+    flat_keys = keys.copy()
+    flat_keys[np.flatnonzero(valid)[0], -1] += 0.25
+    k, fk, v, m, qq, ww = (torch.as_tensor(a, device=cuda) for a in
+                           (keys, flat_keys, values, valid, queries, w))
+    counts = []
+    PR.enable()
+    try:
+        for kk in (k, fk):
+            first = PR.snapshot()["counters"]
+            prep = K.prepare_sorted_store(kk, v, m, ww)
+            ops, qorder = K.prepared_query_operands(prep, qq)
+            got = K.sorted_moments(ops)
+            last = PR.snapshot()["counters"]
+            counts.append({n: last[n] - first.get(n, 0) for n in last})
+    finally:
+        PR.enable(False)
+    comp, flat = counts
+    assert (comp["sorted_prepare.prepares"], comp["sorted_prepare.composite"]
+            ) == (1, 1)
+    assert (flat["sorted_prepare.prepares"], flat["sorted_prepare.composite"]
+            ) == (1, 0)
+    assert 0 < comp["sorted_moments.walked"] < 0.5 * flat["sorted_moments.walked"]
+    assert comp["sorted_moments.matched"] > 0
+
+    prep = K.prepare_sorted_store(k, v, m, ww)
+    assert bool(prep.composite) and int(prep.sdim) == 20
+    ops, qorder = K.prepared_query_operands(prep, qq)
+    got = K.sorted_moments(ops)
+    _check(got, _plain_in_chunks(ops))
+    eager = K.query_sorted_prepared(prep, qq)
+    assert torch.equal(eager[qorder], got)
+
+    static_q = qq.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.query_sorted_prepared(prep, static_q)          # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.query_sorted_prepared(prep, static_q)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    other = qq.flip(0) + 0.25 * torch.randn_like(qq) * ww
+    static_q.copy_(other)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.query_sorted_prepared(prep, other))

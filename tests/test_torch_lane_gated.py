@@ -174,6 +174,32 @@ def test_fill_lane_store_wraps_its_ring_with_the_behaviour_policys_records():
     assert all(torch.equal(a, b) for a, b in zip(store, again))
 
 
+def test_prepared_lane_fill_bands_on_the_composite_key():
+    """A lane fill (128 envs x 40 ticks into 2^12 rows): the prepare bands
+    on the composite (action, next most selective dim) key, and
+    ``query_sorted_prepared`` answers candidate keys near the rows and of
+    random lane states as the brute ``_raw_moments`` does: counts exact,
+    sums within rtol 1e-4 / atol 1e-3."""
+    store, _ = fill_lane_store(store_cfg=StoreConfig(value_mode="nstep"),
+                               envs=128, ticks=40, capacity=1 << 12, seed=7,
+                               device=CPU)
+    valid = ST.store_valid(store)
+    prep = K.prepare_sorted_store(store.keys, store.values, valid, HW)
+    assert bool(prep.composite) and int(prep.sdim) == 20
+    assert int(prep.sdim2) != 20
+    g = _gen(8)
+    rows = torch.randint(0, 1 << 12, (384,), generator=g)
+    near = store.keys[rows, :20] + torch.randn(384, 20, generator=g) * HW[:20]
+    far = DEC.wrap_state(ML.to_multilane_state(_state(128, 9),
+                                               ML.MultiLaneEnvConfig()))
+    queries = RLS.candidate_keys(torch.cat([near, far]), 8).reshape(-1, 21)
+    got = K.query_sorted_prepared(prep, queries)
+    want = ST._raw_moments(store.keys, store.values, valid, queries, HW)
+    assert got[:, 0].sum() > 0
+    assert torch.equal(got[:, 0], want[:, 0])
+    torch.testing.assert_close(got[:, 1:], want[:, 1:], rtol=1e-4, atol=1e-3)
+
+
 def _state(b, seed):
     """Seeded random lane states: reset traffic, the ego anywhere on the
     road, between lanes and at any speed."""

@@ -161,7 +161,8 @@ def test_the_capture_key_holds_the_switch():
 @pytest.mark.parametrize("devices", [1, 2])
 def test_snapshot_reads_the_totals_by_name(monkeypatch, devices):
     """Each counter by its name, in the kernels' layout (the per-action
-    kernel's four first), summed over the devices that hold totals."""
+    kernel's four first, the flat route's prepare last), summed over the
+    devices that hold totals."""
     tot = torch.arange(PR._N_COUNTERS, dtype=torch.int64)
     totals = {torch.device("cpu"): tot}
     if devices == 2:
@@ -176,7 +177,9 @@ def test_snapshot_reads_the_totals_by_name(monkeypatch, devices):
         "peraction_moments.walked": 0, "peraction_moments.matched": 1,
         "peraction_moments.held": 2, "peraction_moments.warp_rows": 3,
         "sorted_moments.walked": 4, "sorted_moments.matched": 5,
-        "box_moments.walked": 6, "box_moments.matched": 7}.items()}
+        "box_moments.walked": 6, "box_moments.matched": 7,
+        "sorted_prepare.prepares": 8,
+        "sorted_prepare.composite": 9}.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +299,32 @@ def test_the_readers_read_the_program_part():
         100 * program["idle_s"]["dcarl.replay.gated"] / 1e-3)
     assert P.phase_ms({}, "gated", "plan") is None
     assert P.idle_pct({"trace": {}}, "dcarl.replay.gated") is None
+
+
+@pytest.mark.parametrize("integer_action", [True, False])
+def test_sorted_prepare_counts_itself_and_its_composite_key(
+        monkeypatch, integer_action):
+    """With the switch on, ``prepare_sorted_store`` adds one a call to
+    ``sorted_prepare.prepares`` and, where it bands on the composite
+    (action, second dim) key, to ``.composite``: an integer action at w
+    0.1 does, one valid row off the integers does not (the totals stand
+    in on the CPU)."""
+    tot = torch.zeros(PR._N_COUNTERS, dtype=torch.int64)
+    monkeypatch.setattr(PR, "_TOTALS", {torch.device("cpu"): tot})
+    monkeypatch.setattr(PR, "counters", lambda kernel, device: tot[
+        PR._OFFSET[kernel]:PR._OFFSET[kernel] + len(PR.COUNTERS[kernel])])
+    rng = np.random.default_rng(3)
+    keys = rng.normal(0, 3, (600, 5)).astype(np.float32)
+    keys[:, -1] = rng.integers(0, 8, 600)
+    if not integer_action:
+        keys[0, -1] += 0.25
+    w = torch.tensor([2.0, 2.0, 2.0, 2.0, 0.1])
+    for _ in range(2):
+        K.prepare_sorted_store(torch.as_tensor(keys), torch.ones(600),
+                               torch.ones(600, dtype=torch.bool), w)
+    snap = PR.snapshot()["counters"]
+    assert snap["sorted_prepare.prepares"] == 2
+    assert snap["sorted_prepare.composite"] == (2 if integer_action else 0)
 
 
 def test_finish_gives_the_counters_over_the_stretch(monkeypatch):

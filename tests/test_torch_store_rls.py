@@ -496,6 +496,118 @@ def test_sorted_prune_keeps_every_contained_pair(seed):
     assert 0 < keep.float().mean() < 0.6
 
 
+def _lane_like_inputs(seed, n=12000, q=4096, sentinel=True):
+    """A lane-shaped store: 20 clustered state dims at the field's
+    half-widths (dim 1 the 0/1 ego lane), an integer action 0-7 in dim 20
+    at w 0.1, a tenth invalid and (``sentinel``) 3 % valid rows at the
+    1e9 sentinel (dense-block writes); queries are candidate keys near
+    the rows.  Dim 8 spreads over 40 half-widths of 0.2: the sentinel
+    rows' spread swamps every dim's, so the second band dim is the one
+    whose half-width is next narrowest."""
+    rng = np.random.default_rng(seed)
+    d = 21
+    w = np.asarray(S.FIELD_HALF_WIDTHS, np.float32)
+    w[8] = 0.2
+    centers = rng.normal(0, 1, (32, d)) * w * 6
+    keys = (centers[rng.integers(0, 32, n)]
+            + rng.normal(0, 1, (n, d)) * w).astype(np.float32)
+    keys[:, 1] = rng.integers(0, 2, n)
+    keys[:, 8] = rng.uniform(-4, 4, n)
+    keys[:, -1] = rng.integers(0, 8, n)
+    if sentinel:
+        keys[rng.random(n) < 0.03] = S.SENTINEL_KEY
+    values = rng.normal(0, 1, n).astype(np.float32)
+    valid = rng.random(n) < 0.9
+    near = np.flatnonzero(valid & (keys[:, 0] < 1e8))[rng.integers(0, 500, q)]
+    queries = (keys[near] + rng.normal(0, 0.5, (q, d)) * w).astype(np.float32)
+    queries[:, 1] = keys[near, 1]
+    queries[:, -1] = rng.integers(0, 8, q)
+    return keys, values, valid, queries, w
+
+
+def _flat_key_operands(keys, values, valid, queries, w):
+    """The flat key's operands made directly: rows and queries sorted by
+    the most selective dim alone (``argmax(spread / w)``), tested last."""
+    vf = valid.to(torch.float32)
+    cnt = torch.clamp(vf.sum(), min=1.0)
+    mean = (vf[:, None] * keys).sum(0) / cnt
+    spread = (vf[:, None] * (keys - mean).abs()).sum(0) / cnt
+    a = torch.argmax(spread / torch.clamp(w, min=1e-9))
+    sk = torch.where(valid, keys[:, a], K._PAD)
+    order = torch.argsort(sk, stable=True)
+    prep = K._sorted_rows(keys[order], values[order], valid[order], sk[order],
+                          w, w[a].reshape(1), K._dim_order(
+                              keys[order], valid[order], w, (a,)), sdim=a)
+    qorder = torch.argsort(queries[:, a], stable=True)
+    return K._with_queries(prep, queries[qorder], queries[qorder, a]), qorder
+
+
+def _assert_operands_equal(got, want):
+    for name in got._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("case", ["near", "outside_span", "off_lattice",
+                                  "sentinel_queries"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_composite_prune_keeps_every_contained_pair(seed, case):
+    """The flat route bands a lane-shaped store on (action, second dim):
+    every contained pair stays in a kept (tile, sub-slice) pair, on a
+    store with valid sentinel rows, for queries near the rows, with the
+    second dim outside the rows' span, with non-integer and x.5 actions,
+    and with queries at the sentinel; the prune keeps under half of what
+    the flat key's keeps on the same operands."""
+    keys, values, valid, queries, w = _lane_like_inputs(seed)
+    t = [_t(a) for a in (keys, values, valid)]
+    prep = K.prepare_sorted_store(*t, _t(w))
+    assert bool(prep.composite) and int(prep.sdim) == 20
+    s = int(prep.sdim2)
+    assert s == 8
+    rng = np.random.default_rng(seed)
+    q = len(queries)
+    if case == "outside_span":
+        span = float(np.abs(keys[valid & (keys[:, 0] < 1e8), s]).max())
+        queries[: q // 2, s] = span + 300.0 * rng.random(q // 2)
+        queries[q // 2:, s] = -span - 3.0 * w[s] * rng.random(q - q // 2)
+    elif case == "off_lattice":
+        queries[::3, -1] += 0.05
+        queries[1::3, -1] += 0.5
+    elif case == "sentinel_queries":
+        queries[::50] = S.SENTINEL_KEY
+    ops, _ = K.prepared_query_operands(prep, _t(queries))
+    keep = _assert_prune_keeps(ops, 0 if case == "outside_span" else 50)
+    if case == "sentinel_queries":
+        # the sentinel rows are valid and matched, from a 1e9-scale key
+        assert float(K.sorted_moments_plain(ops)[:, 0].max()) > 50
+        return
+    flat, _ = _flat_key_operands(*t, _t(queries), _t(w))
+    flat_keep = _assert_prune_keeps(flat, 0 if case == "outside_span"
+                                    else 50)
+    assert 0 < keep.float().mean() < 0.5 * flat_keep.float().mean()
+
+
+@pytest.mark.parametrize("change", ["wide_action", "non_integer_action"])
+def test_flat_key_where_the_band_dim_is_not_discrete(change):
+    """With ``w_a >= 0.5`` or a non-integer valid key in the band dim,
+    ``prepare_sorted_store`` keeps the flat key: the operands are bit for
+    bit those of the flat key made directly."""
+    keys, values, valid, queries, w = _lane_like_inputs(
+        2, 6000, 300, sentinel=change != "wide_action")
+    if change == "wide_action":
+        w[-1] = 0.5
+        keys[:, -1] *= 40.0  # keep it the band dim
+    else:
+        keys[np.flatnonzero(valid)[7], -1] += 0.25
+    t = [_t(a) for a in (keys, values, valid, queries, w)]
+    prep = K.prepare_sorted_store(*t[:3], t[4])
+    assert not bool(prep.composite) and int(prep.sdim) == 20
+    got, got_order = K.prepared_query_operands(prep, t[3])
+    want, want_order = _flat_key_operands(*t)
+    _assert_operands_equal(got, want)
+    assert torch.equal(got_order, want_order)
+    assert torch.equal(prep.w0, t[4][20:])
+
+
 def test_grouped_prune_keeps_pairs_on_dense_sentinel_store():
     keys, values, valid, qg, w = _dense_sentinel_inputs(seed=3, waves=16)
     ops, _ = K.grouped_query_operands(*(_t(a) for a in (keys, values, valid,
