@@ -7,16 +7,16 @@ it launches the kernel or raises):
 
 * ``peraction_moments`` (gated driver, below);
 * ``sorted_moments``, ``[Q, 3]`` moments against band-sorted rows with
-  a sub-slice band prune: the flat :func:`box_query_moments_sorted`
-  (``core/store.py::box_query_stats``; :func:`prepare_sorted_store` and
-  :func:`query_sorted_prepared` for a store that many batches ask, the
-  lane gate's) and the action-grouped
-  :func:`box_query_moments_grouped` (the trainer's rule-column query).
-  Both band on a composite key where the store allows it: the grouped
-  route on (action, ``band_dim``); the flat route on (its most selective
-  dim, the next most selective one) where the first is discrete (half-width
-  < 0.5, integer keys in every valid row: a candidate action), else on
-  the most selective dim alone (:func:`prepare_sorted_store`);
+  a sub-slice band prune.  One route, :func:`_prepare_band` then
+  :func:`query_sorted_prepared`, bands on a composite (primary dim,
+  second dim) key where the primary dim is discrete (half-width < 0.5,
+  integer keys in every valid row: a candidate action), else on the
+  primary dim alone.  It has two callers: the flat
+  :func:`box_query_moments_sorted` (``core/store.py::box_query_stats``;
+  :func:`prepare_sorted_store`, which picks both dims from the data, for
+  a store that many batches ask, the lane gate's), and the
+  action-grouped :func:`box_query_moments_grouped` (the trainer's
+  rule-column query), on the fixed dims (action, ``band_dim``);
 * ``box_moments``, the unpruned brute-force ``[Q, 3]`` baseline
   (:func:`box_query_moments_brute`).
 
@@ -120,18 +120,25 @@ def _chunk_plan(s_lo: torch.Tensor, s_hi: torch.Tensor, n_sub: int,
                 max_chunks=s_lo.shape[0] * -(-n_sub // chunk))
 
 
-def _dim_order(keys: torch.Tensor, valid: torch.Tensor, w: torch.Tensor,
-               last: tuple) -> torch.Tensor:
-    """[D] i32 key dims, most selective first: spread (mean |x - mean| of
-    the valid rows) over half-width, the dims in ``last`` (ints or
-    device scalars) at the end: the rows a tile examines are already
-    near its queries along those, so they reject least there.  The
-    per-dim tests are AND-ed, so any order gives the same result."""
+def _selectivity(keys: torch.Tensor, valid: torch.Tensor, w: torch.Tensor
+                 ) -> torch.Tensor:
+    """[D] f32 how selective each key dim is: the spread of the valid
+    rows (mean |x - mean|) over the half-width, >= 0."""
     vf = valid.to(torch.float32)
     cnt = torch.clamp(vf.sum(), min=1.0)
     mean = (vf @ keys) / cnt
     sel = (vf @ torch.abs(keys - mean)) / cnt / torch.clamp(w, min=1e-9)
-    sel = torch.nan_to_num(sel, nan=0.0, posinf=3e38)
+    return torch.nan_to_num(sel, nan=0.0, posinf=3e38)
+
+
+def _dim_order(keys: torch.Tensor, valid: torch.Tensor, w: torch.Tensor,
+               last: tuple) -> torch.Tensor:
+    """[D] i32 key dims, most selective first (:func:`_selectivity`), the
+    dims in ``last`` (ints or device scalars) at the end: the rows a tile
+    examines are already near its queries along those, so they reject
+    least there.  The per-dim tests are AND-ed, so any order gives the
+    same result."""
+    sel = _selectivity(keys, valid, w)
     for i, dim in enumerate(last):
         if isinstance(dim, int):
             # a fill: ``sel[dim] = x`` would copy a host scalar to the
@@ -236,13 +243,9 @@ def prepare_peraction_store(
     valid = valid.to(dev)
     w = half_widths.to(dev, torch.float32)
 
-    # Second prune dim: the most selective obs dim (spread over
-    # half-width) other than the band dim, measured from the data.
-    vf0 = valid.to(torch.float32)
-    cnt0 = torch.clamp(vf0.sum(), min=1.0)
-    mean0 = (vf0 @ keys) / cnt0
-    spread0 = (vf0 @ torch.abs(keys - mean0)) / cnt0
-    sel0 = spread0[:obs_dim] / torch.clamp(w[:obs_dim], min=1e-9)
+    # Second prune dim: the most selective obs dim other than the band
+    # dim, measured from the data.
+    sel0 = _selectivity(keys, valid, w)[:obs_dim]
     sel0[band_dim:band_dim + 1].fill_(-1.0)
     sdim2 = torch.argmax(sel0)
     w2 = w.index_select(0, sdim2.reshape(1))
@@ -615,15 +618,12 @@ class SortedOperands(NamedTuple):
 
 
 class PreparedSortedStore(NamedTuple):
-    """Store side of the flat sorted-band query
-    (:func:`prepare_sorted_store`): everything that depends on the rows
-    alone, made once for a store that many batches of queries ask.  The
-    flat route's band key is ``key[sdim]``, or, where ``composite`` holds,
-    ``round(key[sdim]) * comp_c + key[sdim2]``; the grouped route, whose
-    band key is its own composite, leaves the band-key fields None."""
+    """Store side of the sorted-band query (:func:`_prepare_band`):
+    everything that depends on the rows alone, made once for a store that
+    many batches of queries ask.  The band key is ``key[sdim]``, or, where
+    ``composite`` holds, ``round(key[sdim]) * comp_c + key[sdim2]``."""
 
-    sdim: "torch.Tensor | None"  # [] i64 primary band dim, the most
-    #                              selective
+    sdim: torch.Tensor    # [] i64 primary band dim
     keys_t: torch.Tensor  # [D, n_pad] f32 rows, band order; padding _PAD
     vals: torch.Tensor    # [n_pad] f32 (0 on padding)
     valid: torch.Tensor   # [n_pad] f32 1 / 0 (0 on padding)
@@ -633,19 +633,17 @@ class PreparedSortedStore(NamedTuple):
     w: torch.Tensor       # [D] f32 half-widths
     w0: torch.Tensor      # [1] f32 band half-width of the prune (on the
     #                       composite key, before the queries' share)
-    sdim2: "torch.Tensor | None" = None      # [] i64 composite key's
-    #                                          second dim
-    composite: "torch.Tensor | None" = None  # [] bool: band on the
-    #                                          composite key
-    comp_c: "torch.Tensor | None" = None     # [] f32 its c
+    sdim2: torch.Tensor      # [] i64 composite key's second dim
+    composite: torch.Tensor  # [] bool: band on the composite key
+    comp_c: torch.Tensor     # [] f32 its c
 
 
-def _sorted_rows(keys_s, vals_s, valid_s, sk_s, w, w0, perm, sdim=None,
-                 **band) -> PreparedSortedStore:
+def _sorted_rows(keys_s, vals_s, valid_s, sk_s, w, w0, perm, **band
+                 ) -> PreparedSortedStore:
     """Pad and lay out rows already in band order; the extrema are taken
     over the same f32 values the kernel compares.  ``perm`` is the
-    records' dim order (:func:`_dim_order`); ``sdim`` and ``band`` are
-    the flat route's band-key fields."""
+    records' dim order (:func:`_dim_order`); ``band`` holds the band-key
+    fields."""
     n, d = keys_s.shape
     dev = keys_s.device
     n_pad = _round_up(max(n, _SSUB_N), _SSUB_N)
@@ -658,17 +656,16 @@ def _sorted_rows(keys_s, vals_s, valid_s, sk_s, w, w0, perm, sdim=None,
     ks_p = torch.full((n_pad,), _PAD, dtype=torch.float32, device=dev)
     ks_p[:n] = sk_s
     return PreparedSortedStore(
-        sdim=sdim, keys_t=keys_t, vals=vals, valid=valid,
+        keys_t=keys_t, vals=vals, valid=valid,
         rows=_band_rows(keys_t, vals, valid, perm), perm=perm,
         kb=_extrema(ks_p, _SSUB_N), w=w.contiguous(),
         w0=w0.reshape(1).contiguous(), **band)
 
 
-def _with_queries(prep: PreparedSortedStore, q_s, qk_s, w0=None
+def _with_queries(prep: PreparedSortedStore, q_s, qk_s, w0
                   ) -> SortedOperands:
     """The operands of queries already in band order (``qk_s`` their band
-    keys) against prepared rows, with the band half-width ``w0`` [1]
-    (the store's by default)."""
+    keys) against prepared rows, with the band half-width ``w0`` [1]."""
     q = q_s.shape[0]
     pad = _round_up(q, _SQT) - q
     # pad by repeating the last sorted query: the extrema stay exact
@@ -676,8 +673,7 @@ def _with_queries(prep: PreparedSortedStore, q_s, qk_s, w0=None
     return SortedOperands(
         q_t=q_s.T.contiguous(), keys_t=prep.keys_t, vals=prep.vals,
         valid=prep.valid, rows=prep.rows, perm=prep.perm, kb=prep.kb,
-        qb=_extrema(qk_p, _SQT), w=prep.w,
-        w0=prep.w0 if w0 is None else w0)
+        qb=_extrema(qk_p, _SQT), w=prep.w, w0=w0)
 
 
 def sorted_prune_keep(ops: SortedOperands) -> torch.Tensor:
@@ -803,38 +799,45 @@ def prepare_sorted_store(keys: torch.Tensor,         # [N, D]
                          valid: torch.Tensor,        # [N] bool
                          half_widths: torch.Tensor,  # [D]
                          ) -> PreparedSortedStore:
-    """The store side of the flat query: the rows sorted by their band
-    key (invalid rows last), padded and laid out as the kernel reads
-    them.  A loop whose store is fixed makes it once and asks it with
-    :func:`query_sorted_prepared`.
-
-    The primary dim ``a`` is the most selective one, ``argmax(spread /
-    w)`` with spread the mean |x - mean| of the valid rows.  Where ``a``
-    is discrete (``w[a] < 0.5`` and every valid row's key in ``a`` an
-    integer), the band key is the composite ``round(k_a) * c + k_s``,
-    with ``s`` the most selective other dim and ``c = 4 (max |k_s| + w_s
-    + 1)`` over the valid rows' real ``s`` keys (sentinel-scale ones,
-    ``|k| >= _PAD / 2``, left out); otherwise it is ``k_a``.  The choice
-    is made on the device, with no host synchronisation.  The composite
-    prune is exact for any query: a row can match ``q`` only if ``k_a =
-    round(q_a)``, so every contained pair lies within ``w_s`` of its
-    query on the composite key, and the band half-width adds the f32
-    rounding of the largest composite key the rows and each batch of
-    queries reach (:func:`prepared_query_operands`).  With tracing on
+    """The store side of the flat query, banded on dims chosen from the
+    data (:func:`_prepare_band`): the primary dim is the most selective
+    one (:func:`_selectivity`), the second the most selective other one.
+    The choice is made on the device, with no host synchronisation.  A
+    loop whose store is fixed makes it once and asks it with
+    :func:`query_sorted_prepared`.  With tracing on
     (``utils/profiling``) it counts itself, and whether it took the
     composite key, into ``sorted_prepare``."""
     keys = keys.to(torch.float32)
-    dev = keys.device
-    values = values.to(dev, torch.float32)
-    w = half_widths.to(dev, torch.float32)
-    d = keys.shape[1]
-    vf = valid.to(torch.float32)
-    cnt = torch.clamp(vf.sum(), min=1.0)
-    mean_d = (vf[:, None] * keys).sum(0) / cnt
-    spread = (vf[:, None] * torch.abs(keys - mean_d)).sum(0) / cnt
-    sel = spread / torch.clamp(w, min=1e-9)
+    w = half_widths.to(keys.device, torch.float32)
+    sel = _selectivity(keys, valid, w)
     sdim = torch.argmax(sel)
     sdim2 = torch.argmax(sel.index_fill(0, sdim.reshape(1), -1.0))
+    prep = _prepare_band(keys, values, valid, w, sdim, sdim2)
+    counts = profiling.counters("sorted_prepare", keys.device)
+    if counts is not None:
+        counts[:1].add_(1)
+        counts[1:].add_(prep.composite.to(torch.int64))
+    return prep
+
+
+def _prepare_band(keys, values, valid, w, sdim, sdim2) -> PreparedSortedStore:
+    """The rows of f32 ``keys`` [N, D] sorted by their band key on the
+    dims ``sdim`` and ``sdim2`` ([] i64, on the device of ``keys`` as
+    ``w`` is), invalid rows last, padded and laid out as the kernel reads
+    them.
+
+    Where ``a = sdim`` is discrete (``w[a] < 0.5`` and every valid row's
+    key in ``a`` an integer; tested on the device) the band key is the
+    composite ``round(k_a) * c + k_s`` (:func:`_composite_key`), with
+    ``s = sdim2`` and ``c = 4 (max |k_s| + w_s + 1)`` over the valid
+    rows' real ``s`` keys (sentinel-scale ones, ``|k| >= _PAD / 2``, left
+    out); otherwise it is ``k_a``.  The composite prune is exact for any
+    query: a row can match ``q`` only if ``k_a = round(q_a)``, so every
+    contained pair lies within ``w_s`` of its query on the composite key,
+    and the band half-width adds the f32 rounding of the largest
+    composite key the rows and each batch of queries reach
+    (:func:`_composite_w0`, :func:`prepared_query_operands`)."""
+    d = keys.shape[1]
     w0 = w.index_select(0, sdim.reshape(1))
     w_s = w.index_select(0, sdim2.reshape(1))
     k_a, k_s = _index_dim(keys, sdim), _index_dim(keys, sdim2)
@@ -850,13 +853,10 @@ def prepare_sorted_store(keys: torch.Tensor,         # [N, D]
     order = torch.argsort(sk, stable=True)
     keys_s, valid_s = keys[order], valid[order]
     # the band dims are tested last: the prune has already bounded them
-    perm = torch.where(composite, _dim_order(keys_s, valid_s, w, (sdim2, sdim)),
-                       _dim_order(keys_s, valid_s, w, (sdim,)))
-    counts = profiling.counters("sorted_prepare", dev)
-    if counts is not None:
-        counts[:1].add_(1)
-        counts[1:].add_(composite.to(torch.int64))
-    return _sorted_rows(keys_s, values[order], valid_s, sk[order], w,
+    perm = _dim_order(keys_s, valid_s, w,
+                      (torch.where(composite, sdim2, sdim), sdim))
+    return _sorted_rows(keys_s, values.to(keys.device, torch.float32)[order],
+                        valid_s, sk[order], w,
                         torch.where(composite, _composite_w0(w_s, reach), w0),
                         perm, sdim=sdim, sdim2=sdim2, composite=composite,
                         comp_c=c)
@@ -869,9 +869,9 @@ def _max0(x: torch.Tensor) -> torch.Tensor:
 
 def _composite_key(k_a: torch.Tensor, k_s: torch.Tensor, c: torch.Tensor
                    ) -> torch.Tensor:
-    """The flat route's composite band key ``round(k_a) * c + k_s`` in
-    f32, rows and queries alike: a row and a query with the same
-    ``round(k_a)`` share the product bit for bit."""
+    """The composite band key ``round(k_a) * c + k_s`` in f32, rows and
+    queries alike: a row and a query with the same ``round(k_a)`` share
+    the product bit for bit."""
     return torch.round(k_a) * c + k_s
 
 
@@ -944,50 +944,30 @@ def box_query_moments_sorted(keys: torch.Tensor,         # [N, D]
         prepare_sorted_store(keys, values, valid, half_widths), queries)
 
 
-def grouped_query_operands(keys, values, valid, queries, half_widths,
-                           action_dim: int = -1, band_dim: "int | None" = 1
-                           ) -> Tuple[SortedOperands, "torch.Tensor | None"]:
-    """Band order of the action-grouped query [A, Qa, D]: the composite
-    key ``action * c + key[band_dim]`` (c = 4 span, so actions never
-    band-overlap), one stable [Qa] sort shared by every group.  Returns
-    the operands and ``qorder`` [Qa] (None with ``band_dim=None``)."""
-    a, qa, d = queries.shape
+def _grouped_store(keys, values, valid, half_widths, action_dim: int,
+                   band_dim: int) -> PreparedSortedStore:
+    """The store banded on the fixed dims (``action_dim``, ``band_dim``):
+    the composite key where the action column is integral."""
     keys = keys.to(torch.float32)
-    values = values.to(keys.device, torch.float32)
-    queries = queries.to(torch.float32)
-    w = half_widths.to(keys.device, torch.float32)
-    sdim = action_dim % d
-    qorder = None
-    if band_dim is None:
-        w0 = w[sdim]
-        row_band = keys[:, sdim]
-        q_band = queries.reshape(a * qa, d)[:, sdim]
-    else:
-        w0 = w[band_dim]
-        bvals = keys[:, band_dim]
-        qb = queries[0, :, band_dim]              # same envs in every group
-        # sentinel rows (dense-block writes, |key| ~ 1e9) stay out of the
-        # span, or c would quantize the f32 composite key to steps >> w0
-        real = valid & (torch.abs(bvals) < _PAD / 2)
-        span = torch.maximum(torch.where(real, torch.abs(bvals), 0.0).amax(),
-                             torch.abs(qb).amax()) + w0 + 1.0
-        c = 4.0 * span
-        row_band = keys[:, sdim] * c + bvals
-        qorder = torch.argsort(qb, stable=True)
-        queries = queries[:, qorder]
-        q_band = (queries[:, :, sdim] * c
-                  + queries[:, :, band_dim]).reshape(a * qa)
-        # composite keys reach ~A*c: pad the band test by their f32
-        # rounding so quantization only loosens the prune
-        w0 = w0 + 32.0 * c * 1.2e-7
-    sk = torch.where(valid, row_band, _PAD)
-    order = torch.argsort(sk, stable=True)
-    keys_s, valid_s = keys[order], valid[order]
-    prep = _sorted_rows(keys_s, values[order], valid_s, sk[order], w, w0,
-                        _dim_order(keys_s, valid_s, w,
-                                   (sdim,) if band_dim is None
-                                   else (band_dim % d, sdim)))
-    return _with_queries(prep, queries.reshape(a * qa, d), q_band), qorder
+    d = keys.shape[1]
+    sdim, sdim2 = (torch.full((), x % d, dtype=torch.int64,
+                              device=keys.device)
+                   for x in (action_dim, band_dim))
+    return _prepare_band(keys, values, valid,
+                         half_widths.to(keys.device, torch.float32),
+                         sdim, sdim2)
+
+
+def grouped_query_operands(keys, values, valid, queries, half_widths,
+                           action_dim: int = -1, band_dim: int = 1
+                           ) -> Tuple[SortedOperands, torch.Tensor]:
+    """Band order of the action-grouped query [A, Qa, D]: the flat
+    route's query (:func:`prepared_query_operands`) of the [A Qa, D]
+    queries against the store banded on (action, ``band_dim``).  Returns
+    the operands and ``qorder`` [A Qa] (band position -> query row)."""
+    return prepared_query_operands(
+        _grouped_store(keys, values, valid, half_widths, action_dim,
+                       band_dim), queries.reshape(-1, queries.shape[-1]))
 
 
 def box_query_moments_grouped(keys: torch.Tensor,         # [N, D]
@@ -996,19 +976,16 @@ def box_query_moments_grouped(keys: torch.Tensor,         # [N, D]
                               queries: torch.Tensor,      # [A, Qa, D]
                               half_widths: torch.Tensor,  # [D]
                               action_dim: int = -1,
-                              band_dim: "int | None" = 1) -> torch.Tensor:
-    """[A, Qa, 3] moments of action-grouped queries (every group holds
-    the same envs) through the sorted-band kernel
-    (``pallas_store.py::box_query_moments_grouped``)."""
-    a, qa, _ = queries.shape
-    if a * qa == 0:
-        return torch.zeros((a, qa, 3), device=queries.device)
-    ops, qorder = grouped_query_operands(keys, values, valid, queries,
-                                         half_widths, action_dim, band_dim)
-    out = sorted_moments(ops).reshape(a, qa, 3)
-    if qorder is not None:
-        out = torch.empty_like(out).index_copy_(1, qorder, out)
-    return out
+                              band_dim: int = 1) -> torch.Tensor:
+    """[A, Qa, 3] moments of action-grouped queries through the
+    sorted-band kernel (``pallas_store.py::box_query_moments_grouped``):
+    :func:`query_sorted_prepared` against the store banded on (action,
+    ``band_dim``)."""
+    a, qa, d = queries.shape
+    return query_sorted_prepared(
+        _grouped_store(keys, values, valid, half_widths, action_dim,
+                       band_dim), queries.reshape(a * qa, d)
+    ).reshape(a, qa, 3)
 
 
 # ---------------------------------------------------------------------------

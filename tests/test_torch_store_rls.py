@@ -537,9 +537,12 @@ def _flat_key_operands(keys, values, valid, queries, w):
     order = torch.argsort(sk, stable=True)
     prep = K._sorted_rows(keys[order], values[order], valid[order], sk[order],
                           w, w[a].reshape(1), K._dim_order(
-                              keys[order], valid[order], w, (a,)), sdim=a)
+                              keys[order], valid[order], w, (a,)), sdim=a,
+                          sdim2=a, composite=torch.tensor(False),
+                          comp_c=torch.tensor(0.0))
     qorder = torch.argsort(queries[:, a], stable=True)
-    return K._with_queries(prep, queries[qorder], queries[qorder, a]), qorder
+    return K._with_queries(prep, queries[qorder], queries[qorder, a],
+                           prep.w0), qorder
 
 
 def _assert_operands_equal(got, want):
@@ -615,6 +618,108 @@ def test_grouped_prune_keeps_pairs_on_dense_sentinel_store():
     _assert_prune_keeps(ops, 20)
     # the sentinel rows are valid, yet stay out of the composite span
     assert bool((_t(keys)[:, 0] > 1e8).any())
+
+
+def test_grouped_prune_keeps_off_lattice_action_rows():
+    """Valid rows whose action lies off the integers, within the action
+    half-width of a candidate (0.05 and 0.95 at w 0.1), match their
+    candidates' queries: the grouped route takes the plain action band
+    there, keeps every contained pair and sums what ``_raw_moments``
+    sums.  A composite key on the unrounded action would put those rows
+    about four band units from their queries, among the lattice rows
+    spread over +-20 in dim 1, in sub-slices the prune drops."""
+    rng = np.random.default_rng(21)
+    n, qa = 4000, 128
+    lattice = rng.normal(0, 3, (2 * n, 5)).astype(np.float32)
+    lattice[:, 1] = np.tile(np.linspace(-20, 20, n), 2)
+    lattice[:, -1] = np.repeat([0.0, 1.0], n)
+    off = np.zeros((6, 5), np.float32)
+    off[:, -1] = [0.05] * 3 + [0.95] * 3
+    keys = np.concatenate([lattice, off])
+    values = rng.normal(0, 1, len(keys)).astype(np.float32)
+    valid = np.ones(len(keys), bool)
+    obs = rng.uniform(-0.1, 0.1, (qa, 4)).astype(np.float32)
+    w = np.asarray([1.0, 0.3, 1.0, 1.0, 0.1], np.float32)
+    t = [_t(a) for a in (keys, values, valid, _group(obs, 2), w)]
+    ops, _ = K.grouped_query_operands(*t)
+    _assert_prune_keeps(ops, 6 * qa)
+    got = K.box_query_moments_grouped(*t)
+    raw = S._raw_moments(t[0], t[1], t[2], t[3].reshape(-1, 5), t[4])
+    assert (raw[:, 0] >= 3).all()  # each query holds its off-lattice rows
+    _assert_moments(got.numpy(), raw.numpy().reshape(got.shape))
+
+
+# The band dims and record orders each prepare chose on the tests' stores
+# before the flat and grouped routes shared one band-key core: sdim,
+# sdim2, composite and perm of prepare_sorted_store, sdim2 and perm of
+# prepare_peraction_store (n_tile 256) and, on the grouped stores, the
+# grouped route's record order.  Taken on one torch thread: on the
+# sentinel store the 1e9 rows swamp every dim's spread, so the order of
+# dims with equal half-widths is that of the sums' rounding, which
+# follows the thread count.
+BAND_DIMS = {
+    "flat_random": dict(
+        sdim=11, sdim2=3, composite=False,
+        perm=[3, 0, 8, 19, 13, 9, 14, 17, 4, 1, 20, 12, 6, 16, 7, 10, 2, 18,
+              5, 15, 11],
+        pa_sdim2=11,
+        pa_perm=[3, 0, 8, 19, 13, 9, 14, 17, 4, 12, 6, 16, 7, 10, 2, 18, 5,
+                 15, 11, 1]),
+    "lane_sentinel": dict(
+        sdim=20, sdim2=8, composite=True,
+        perm=[1, 5, 9, 13, 17, 0, 2, 6, 10, 14, 18, 4, 12, 16, 3, 7, 11, 15,
+              19, 8, 20],
+        pa_sdim2=8,
+        pa_perm=[17, 5, 9, 13, 0, 18, 14, 2, 6, 10, 16, 12, 4, 19, 15, 3, 7,
+                 11, 8, 1]),
+    "lane_plain": dict(
+        sdim=20, sdim2=8, composite=True,
+        perm=[11, 12, 16, 9, 4, 6, 3, 0, 18, 19, 7, 13, 14, 5, 15, 2, 17, 10,
+              1, 8, 20],
+        pa_sdim2=8,
+        pa_perm=[11, 12, 16, 9, 4, 6, 3, 0, 18, 19, 7, 13, 14, 5, 15, 2, 17,
+                 10, 8, 1]),
+    "dense_sentinel": dict(
+        sdim=4, sdim2=0, composite=True, perm=[1, 2, 3, 0, 4], pa_sdim2=0,
+        pa_perm=[2, 3, 0, 1], grouped_perm=[0, 2, 3, 1, 4]),
+    "grouped": dict(
+        sdim=20, sdim2=5, composite=True,
+        perm=[6, 11, 9, 16, 13, 4, 18, 12, 15, 3, 17, 19, 14, 7, 8, 10, 2, 1,
+              0, 5, 20],
+        pa_sdim2=5,
+        pa_perm=[6, 11, 9, 16, 13, 4, 18, 12, 15, 3, 17, 19, 14, 7, 8, 10, 2,
+                 0, 5, 1],
+        grouped_perm=[5, 6, 11, 9, 16, 13, 4, 18, 12, 15, 3, 17, 19, 14, 7,
+                      8, 10, 2, 0, 1, 20]),
+}
+
+
+@pytest.mark.parametrize("store", sorted(BAND_DIMS))
+def test_band_dims_as_before(store):
+    keys, values, valid, queries, w = {
+        "flat_random": lambda: _flat_inputs(1, 0.8),
+        "lane_sentinel": lambda: _lane_like_inputs(0),
+        "lane_plain": lambda: _lane_like_inputs(0, sentinel=False),
+        "dense_sentinel": _dense_sentinel_inputs,
+        "grouped": _grouped_inputs}[store]()
+    num_actions = {"lane_sentinel": 8, "lane_plain": 8,
+                   "dense_sentinel": 4}.get(store, 11)
+    t = [_t(a) for a in (keys, values, valid)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        prep = K.prepare_sorted_store(*t, _t(w))
+        pa = K.prepare_peraction_store(*t, _t(w), num_actions=num_actions,
+                                       n_tile=256)
+        got = dict(sdim=int(prep.sdim), sdim2=int(prep.sdim2),
+                   composite=bool(prep.composite), perm=prep.perm.tolist(),
+                   pa_sdim2=int(pa.sdim2), pa_perm=pa.perm.tolist())
+        if queries.ndim == 3:
+            ops, _ = K.grouped_query_operands(*t, _t(queries), _t(w))
+            got["grouped_perm"] = ops.perm.tolist()
+    finally:
+        torch.set_num_threads(threads)
+    assert got == BAND_DIMS[store]
 
 
 # ---------------------------------------------------------------------------
