@@ -512,7 +512,7 @@ def sorted_probe(store_kernels, _cuda):
     """Counts each launch's work at once (its operands are rebuilt every
     step, too large to keep for a 300-step run)."""
     def probe(args, out):
-        (ops,) = args
+        ops = args[0]
         d, q = ops.q_t.shape
         keep = store_kernels.sorted_prune_keep(ops)
         tile_q = torch.full((keep.shape[0],), float(store_kernels._SQT),
@@ -689,9 +689,9 @@ def hold_kept_launches(sk, kept: dict, what: str) -> dict:
     version."""
     errs = {}
     if "launch_sorted" in kept:
-        ((ops,), out), = kept["launch_sorted"]
-        errs["sorted_moments"] = compare(out, sk.sorted_moments_plain(ops),
-                                         what + "_sorted")
+        ((ops, *dtype), out), = kept["launch_sorted"]
+        errs["sorted_moments"] = compare(
+            out, sk.sorted_moments_plain(ops, *dtype), what + "_sorted")
     if "launch_peraction" in kept:
         launches = kept["launch_peraction"]
         best = int(torch.stack([o[..., 0].sum() for _, o in launches])
@@ -1167,14 +1167,15 @@ def trustset_phase(sk, _cuda, gpu: str) -> dict:
     # the launch with the most matches against the plain version
     kept = slot["launch_sorted"]
     best = int(torch.stack([o[:, 0].sum() for _, o in kept]).argmax())
-    (ops,), out = kept[best]
-    err = compare(out, sk.sorted_moments_plain(ops), "trustset_kept_launch")
-    if not torch.equal(sk.sorted_moments(ops), out):
+    (ops, *dtype), out = kept[best]
+    err = compare(out, sk.sorted_moments_plain(ops, *dtype),
+                  "trustset_kept_launch")
+    if not torch.equal(sk.sorted_moments(ops, *dtype), out):
         fail("trustset: two sorted_moments launches differ")
     kept_matches = int(out[:, 0].sum())
     # that launch timed alone, with its plain version, and its bound
-    kept_ms = cuda_ms(lambda: sk.sorted_moments(ops))
-    kept_plain_ms = cuda_ms(lambda: sk.sorted_moments_plain(ops))
+    kept_ms = cuda_ms(lambda: sk.sorted_moments(ops, *dtype))
+    kept_plain_ms = cuda_ms(lambda: sk.sorted_moments_plain(ops, *dtype))
     _, _, k_bytes, k_ops, _ = sorted_probe(sk, _cuda)((ops,), out)()
     kept_bound = bound_ms(float(k_bytes), float(k_ops))
     del kept, slot
@@ -1829,31 +1830,40 @@ def lane_phase(sk, _cuda, gpu: str, dev, sizes=LANE_SIZES) -> dict:
              "(it must wrap once) or non-finite values")
     vals = store.values[valid]
 
-    # 3. the gated run; first the first tick's launch against the plain
-    # version
+    # 3. the gated run; first the first tick's launch on the compiled
+    # loop's route (a store prepared once) against the plain version
     gb, gt, ce = sizes["gate_envs"], sizes["gate_ticks"], sizes["check_envs"]
     st0 = ML.reset(gb, torch.Generator(device=dev).manual_seed(SEED + 31),
                    cfg, device=dev)
     keys0 = RLS.candidate_keys(DEC.wrap_state(ML.to_multilane_state(st0, cfg)),
                                n_act).reshape(-1, scfg.key_dim).contiguous()
-    ops, qorder = sk.sorted_query_operands(store.keys, store.values, valid,
-                                           keys0, hw)
-    out = sk.sorted_moments(ops)
+    lane_prep = sk.prepare_sorted_store(store.keys, store.values, valid, hw)
+    ops, qorder = sk.prepared_query_operands(lane_prep, keys0)
+    # as query_sorted_prepared launches: f64 sums where a query's copies
+    # are added before the one rounding
+    dt = torch.float64 if lane_prep.copies == 2 else torch.float32
+    out = sk.sorted_moments(ops, dt)
     sync(dev)
-    if not torch.equal(sk.sorted_moments(ops), out):
+    if not torch.equal(sk.sorted_moments(ops, dt), out):
         fail("lane gate: two sorted_moments launches differ")
     pos = torch.empty_like(qorder)
     pos[qorder] = torch.arange(qorder.shape[0], device=dev)
-    sub = pos[:ce * n_act]                       # band positions, env order
+    # band positions of the first envs' queries, each copy's in env order
+    copies = qorder.shape[0] // keys0.shape[0]
+    sub = torch.cat([pos[c * keys0.shape[0]:][:ce * n_act]
+                     for c in range(copies)])
     chunk = 2048
 
+    def add_copies(m):
+        return m.reshape(copies, -1, 3).sum(0).to(torch.float32)
+
     def plain_sub():
-        return torch.cat([sk.sorted_moments_plain(ops._replace(
-            q_t=ops.q_t[:, sub[i:i + chunk]].contiguous()))
-            for i in range(0, sub.shape[0], chunk)])
+        return add_copies(torch.cat([sk.sorted_moments_plain(ops._replace(
+            q_t=ops.q_t[:, sub[i:i + chunk]].contiguous()), dt)
+            for i in range(0, sub.shape[0], chunk)]))
 
     ref = plain_sub()
-    got = out[sub]
+    got = add_copies(out[sub])
     err = compare(got, ref, "lane_gate")
     gates = {}
     for label, gcfg in (("store_config", scfg),
@@ -1866,11 +1876,11 @@ def lane_phase(sk, _cuda, gpu: str, dev, sizes=LANE_SIZES) -> dict:
                  "version's gate different actions")
         gates[label] = float((acts[0] > 0).float().mean())
     if cuda:
-        ms = cuda_ms(lambda: sk.sorted_moments(ops))
+        ms = cuda_ms(lambda: sk.sorted_moments(ops, dt))
         plain_ms = cuda_ms(plain_sub, reps=1)
-        sub_ops, _ = sk.sorted_query_operands(store.keys, store.values, valid,
-                                              keys0[:ce * n_act], hw)
-        sub_ms = cuda_ms(lambda: sk.sorted_moments(sub_ops))
+        sub_ops, _ = sk.prepared_query_operands(
+            lane_prep, keys0[:ce * n_act])
+        sub_ms = cuda_ms(lambda: sk.sorted_moments(sub_ops, dt))
     else:
         ms = plain_ms = sub_ms = float("nan")
     keep = sk.sorted_prune_keep(ops)

@@ -31,8 +31,10 @@
 // Sums.  Each chunk writes (count, sum v, sum v^2) of each query to its
 // own slot of `partial` in f64 (an f32 sum over tens of thousands of
 // near-identical matched rows misses the oracle's rtol 1e-4, measured on
-// the H100); moments_sum then adds a query's chunks in chunk order.  No
-// atomics: the output is the same bits on every run.
+// the H100); moments_sum then adds a query's chunks in chunk order and
+// rounds the f64 sums once, to float32 or (for a caller that adds several
+// sums before it rounds: the flat route's two copies of a query) to
+// float64.  No atomics: the output is the same bits on every run.
 //
 // Counters (utils/profiling.py, when tracing is on).  moments_main is a
 // template on COUNT too.  With a non-null ``counters`` it adds up the
@@ -202,9 +204,10 @@ __global__ void __launch_bounds__(NT) moments_main(
 }
 
 // Second pass: out[q] = sum of q's chunk partials, in chunk order.
+template <typename Out>
 __global__ void __launch_bounds__(QT) moments_sum(
     const double* __restrict__ partial, const int* __restrict__ off,
-    int Q, float* __restrict__ out)  // [Q, 3]
+    int Q, Out* __restrict__ out)  // [Q, 3]
 {
     const int t = blockIdx.x, tid = threadIdx.x;
     const int pos = t * QT + tid;
@@ -217,9 +220,9 @@ __global__ void __launch_bounds__(QT) moments_sum(
         a2 += p[2 * QT];
     }
     if (pos < Q) {
-        out[(size_t)pos * 3] = (float)a0;
-        out[(size_t)pos * 3 + 1] = (float)a1;
-        out[(size_t)pos * 3 + 2] = (float)a2;
+        out[(size_t)pos * 3] = (Out)a0;
+        out[(size_t)pos * 3 + 1] = (Out)a1;
+        out[(size_t)pos * 3 + 2] = (Out)a2;
     }
 }
 
@@ -227,8 +230,9 @@ template <int D4>
 cudaError_t run_d(const float* q_t, const float* rows, const int* perm,
                   const float* w, const int* s_lo, const int* s_hi,
                   const int* off, int Q, int D, int n_qt, int C,
-                  double* partial, float* out, unsigned long long* counters,
-                  cudaStream_t stream, int* grid) {
+                  double* partial, void* out, bool out_f64,
+                  unsigned long long* counters, cudaStream_t stream,
+                  int* grid) {
     const size_t smem = ring_bytes<PIECE_N>(record_floats(D));
     const auto main_pass = counters ? &moments_main<D4, true>
                                     : &moments_main<D4, false>;
@@ -239,23 +243,29 @@ cudaError_t run_d(const float* q_t, const float* rows, const int* perm,
         counters);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    moments_sum<<<n_qt, QT, 0, stream>>>(partial, off, Q, out);
+    if (out_f64) {
+        moments_sum<<<n_qt, QT, 0, stream>>>(partial, off, Q, (double*)out);
+    } else {
+        moments_sum<<<n_qt, QT, 0, stream>>>(partial, off, Q, (float*)out);
+    }
     return cudaGetLastError();
 }
 
-// Both passes on `stream` (no synchronisation); *grid receives the main
-// pass's block count; `counters` is null or the 2 int64 device totals the
-// main pass adds to.  D in 1..MAX_D; C >= 1.
+// Both passes on `stream` (no synchronisation); `out` is [Q, 3] float64
+// where `out_f64`, else float32; *grid receives the main pass's block
+// count; `counters` is null or the 2 int64 device totals the main pass
+// adds to.  D in 1..MAX_D; C >= 1.
 inline cudaError_t run(const float* q_t, const float* rows, const int* perm,
                        const float* w, const int* s_lo, const int* s_hi,
                        const int* off, int Q, int D, int n_qt, int C,
-                       double* partial, float* out,
+                       double* partial, void* out, bool out_f64,
                        unsigned long long* counters, cudaStream_t stream,
                        int* grid) {
 #define BAND_CASE(G)                                                         \
     case G:                                                                  \
         return run_d<4 * G>(q_t, rows, perm, w, s_lo, s_hi, off, Q, D, n_qt, \
-                            C, partial, out, counters, stream, grid);
+                            C, partial, out, out_f64, counters, stream,      \
+                            grid);
     switch ((D + 3) / 4) {
         BAND_CASE(1) BAND_CASE(2) BAND_CASE(3) BAND_CASE(4)
         BAND_CASE(5) BAND_CASE(6) BAND_CASE(7) BAND_CASE(8)

@@ -47,6 +47,6 @@ extern "C" int box_moments(
     return (int)run((const float*)q_t, (const float*)rows, (const int*)perm,
                     (const float*)w, (const int*)s_lo, (const int*)s_hi,
                     (const int*)off, q_pad, D, n_qt, C, (double*)partial,
-                    (float*)out, (unsigned long long*)counters,
+                    out, false, (unsigned long long*)counters,
                     (cudaStream_t)stream, grid);
 }

@@ -48,11 +48,12 @@ using namespace band_moments;
 // block count to the host int ``grid``.  The caller checks shapes, types,
 // contiguity and the device, and sizes ``partial`` for every chunk of the
 // plan (``off[n_qt]`` chunks of 3 x 128 doubles); ``counters`` is null
-// (count nothing) or 2 int64 device totals (walked, matched).
+// (count nothing) or 2 int64 device totals (walked, matched).  ``out`` is
+// [Q, 3] float64 where ``out_f64`` is nonzero, else float32.
 extern "C" int sorted_moments(
     const void* q_t, const void* rows, const void* perm, const void* w,
     const void* s_lo, const void* s_hi, const void* off,
-    int Q, int D, int n_qt, int C, void* partial, void* out,
+    int Q, int D, int n_qt, int C, int out_f64, void* partial, void* out,
     void* counters, void* stream, int* grid)
 {
     if (Q <= 0 || D < 1 || D > MAX_D || C < 1 || n_qt != (Q + QT - 1) / QT) {
@@ -61,6 +62,6 @@ extern "C" int sorted_moments(
     return (int)run((const float*)q_t, (const float*)rows, (const int*)perm,
                     (const float*)w, (const int*)s_lo, (const int*)s_hi,
                     (const int*)off, Q, D, n_qt, C, (double*)partial,
-                    (float*)out, (unsigned long long*)counters,
+                    out, out_f64 != 0, (unsigned long long*)counters,
                     (cudaStream_t)stream, grid);
 }

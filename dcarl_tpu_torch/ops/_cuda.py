@@ -48,7 +48,7 @@ EXTRA_FLAGS: Dict[str, Sequence[str]] = {
 _P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 SIGNATURES: Dict[str, Sequence] = {
     "peraction_moments": (_P,) * 16 + (_I,) * 6 + (_P,) * 5 + (_IP,),
-    "sorted_moments": (_P,) * 7 + (_I,) * 4 + (_P,) * 4 + (_IP,),
+    "sorted_moments": (_P,) * 7 + (_I,) * 5 + (_P,) * 4 + (_IP,),
     "box_moments": (_P,) * 7 + (_I,) * 4 + (_P,) * 4 + (_IP,),
     "capture_nodes": (_P, ctypes.POINTER(ctypes.c_ulonglong)),
 }

@@ -11,12 +11,16 @@ it launches the kernel or raises):
   :func:`query_sorted_prepared`, bands on a composite (primary dim,
   second dim) key where the primary dim is discrete (half-width < 0.5,
   integer keys in every valid row: a candidate action), else on the
-  primary dim alone.  It has two callers: the flat
-  :func:`box_query_moments_sorted` (``core/store.py::box_query_stats``;
-  :func:`prepare_sorted_store`, which picks both dims from the data, for
-  a store that many batches ask, the lane gate's), and the
-  action-grouped :func:`box_query_moments_grouped` (the trainer's
-  rule-column query), on the fixed dims (action, ``band_dim``);
+  primary dim alone.  Its callers: the flat route, on dims it picks
+  from the data, as :func:`prepare_sorted_store` for a store that many
+  batches ask (the lane gate's), whose composite key also holds a
+  bucketed middle level on a third dim where the rows span two buckets
+  or more (each query asked as two copies, one a bucket its box
+  reaches), and as :func:`box_query_moments_sorted`
+  (``core/store.py::box_query_stats``) for a store prepared for one
+  batch, without the level; and the action-grouped
+  :func:`box_query_moments_grouped` (the trainer's rule-column query),
+  on the fixed dims (action, ``band_dim``), without the level;
 * ``box_moments``, the unpruned brute-force ``[Q, 3]`` baseline
   (:func:`box_query_moments_brute`).
 
@@ -602,7 +606,8 @@ def _band_rows(keys_t: torch.Tensor, vals: torch.Tensor, valid: torch.Tensor,
 class SortedOperands(NamedTuple):
     """Operands of the sorted-band kernel.  Rows are sorted by their band
     key (invalid rows last) and padded to a whole number of sub-slices;
-    queries are sorted by their band key."""
+    queries (or their copies, :func:`prepared_query_operands`) are sorted
+    by their band key."""
 
     q_t: torch.Tensor     # [D, Q] f32 queries, band order
     keys_t: torch.Tensor  # [D, n_pad] f32 rows, band order; padding _PAD
@@ -612,7 +617,8 @@ class SortedOperands(NamedTuple):
     #                       records (_band_rows of the three above)
     perm: torch.Tensor    # [D] i32 key dim of record slot d
     kb: torch.Tensor      # [2, n_pad / 256] band-key extrema per sub-slice
-    qb: torch.Tensor      # [2, ceil(Q / 128)] band-key extrema per query tile
+    qb: torch.Tensor      # [2, ceil(Q / 128)] band-key extrema per query
+    #                       tile, over its queries whose key is not NaN
     w: torch.Tensor       # [D] f32 half-widths
     w0: torch.Tensor      # [1] f32 band half-width of the prune
 
@@ -621,21 +627,36 @@ class PreparedSortedStore(NamedTuple):
     """Store side of the sorted-band query (:func:`_prepare_band`):
     everything that depends on the rows alone, made once for a store that
     many batches of queries ask.  The band key is ``key[sdim]``, or, where
-    ``composite`` holds, ``round(key[sdim]) * comp_c + key[sdim2]``."""
+    ``composite`` holds, ``round(key[sdim]) * comp_c + key[sdim2]``, or,
+    where ``bucketed`` holds too, ``(round(key[sdim]) * n_b + bucket) *
+    comp_c + key[sdim2]`` (:func:`_composite_key`).
+
+    With ``copies`` 2 (:func:`prepare_sorted_store`'s stores of 3 to 31
+    key dims) the rows carry one key column more, last, at half-width 0.25: the bucket
+    of ``key[sdim3]`` (:func:`_bucket`; 0 in every row where the level is
+    not taken), and each query is asked as two copies, one a bucket its
+    box reaches."""
 
     sdim: torch.Tensor    # [] i64 primary band dim
-    keys_t: torch.Tensor  # [D, n_pad] f32 rows, band order; padding _PAD
+    keys_t: torch.Tensor  # [D', n_pad] f32 rows, band order; padding _PAD
     vals: torch.Tensor    # [n_pad] f32 (0 on padding)
     valid: torch.Tensor   # [n_pad] f32 1 / 0 (0 on padding)
-    rows: torch.Tensor    # [n_pad, record_floats(D)] f32 row records
-    perm: torch.Tensor    # [D] i32 key dim of record slot d
+    rows: torch.Tensor    # [n_pad, record_floats(D')] f32 row records
+    perm: torch.Tensor    # [D'] i32 key dim of record slot d
     kb: torch.Tensor      # [2, n_pad / 256] band-key extrema per sub-slice
-    w: torch.Tensor       # [D] f32 half-widths
+    w: torch.Tensor       # [D'] f32 half-widths
     w0: torch.Tensor      # [1] f32 band half-width of the prune (on the
     #                       composite key, before the queries' share)
     sdim2: torch.Tensor      # [] i64 composite key's second dim
     composite: torch.Tensor  # [] bool: band on the composite key
     comp_c: torch.Tensor     # [] f32 its c
+    sdim3: torch.Tensor      # [] i64 the bucketed middle level's dim
+    bucketed: torch.Tensor   # [] bool: the band key holds the level
+    lo_b: torch.Tensor       # [] f64 the level's origin (0 where not taken)
+    h_b: torch.Tensor        # [] f64 its bucket width (1 where not taken)
+    n_b: torch.Tensor        # [] f32 its bucket count (1 where not taken)
+    copies: int              # copies a query is asked as: 1, or 2 where
+    #                          the rows carry the bucket column (D' = D + 1)
 
 
 def _sorted_rows(keys_s, vals_s, valid_s, sk_s, w, w0, perm, **band
@@ -662,18 +683,27 @@ def _sorted_rows(keys_s, vals_s, valid_s, sk_s, w, w0, perm, **band
         w0=w0.reshape(1).contiguous(), **band)
 
 
-def _with_queries(prep: PreparedSortedStore, q_s, qk_s, w0
+def _with_queries(prep: PreparedSortedStore, q_t, qk_s, w0
                   ) -> SortedOperands:
-    """The operands of queries already in band order (``qk_s`` their band
-    keys) against prepared rows, with the band half-width ``w0`` [1]."""
-    q = q_s.shape[0]
+    """The operands of queries already in band order (``q_t`` [D, Q],
+    ``qk_s`` their band keys) against prepared rows, with the band
+    half-width ``w0`` [1].  A query whose band key is NaN matches
+    nothing, so a tile's extrema leave it out, and a tile of such queries
+    (the dead copies at the end of the order, the padding) keeps no
+    sub-slice."""
+    q = q_t.shape[1]
     pad = _round_up(q, _SQT) - q
-    # pad by repeating the last sorted query: the extrema stay exact
-    qk_p = torch.cat([qk_s, qk_s[-1:].expand(pad)])
+    qk_p = torch.cat([qk_s, qk_s.new_full((pad,), torch.nan)])
+    inf = torch.inf
+    qb = torch.stack([
+        torch.nan_to_num(qk_p, nan=inf, posinf=inf, neginf=-inf)
+        .reshape(-1, _SQT).amin(1),
+        torch.nan_to_num(qk_p, nan=-inf, posinf=inf, neginf=-inf)
+        .reshape(-1, _SQT).amax(1)])
     return SortedOperands(
-        q_t=q_s.T.contiguous(), keys_t=prep.keys_t, vals=prep.vals,
+        q_t=q_t, keys_t=prep.keys_t, vals=prep.vals,
         valid=prep.valid, rows=prep.rows, perm=prep.perm, kb=prep.kb,
-        qb=_extrema(qk_p, _SQT), w=prep.w, w0=w0)
+        qb=qb, w=prep.w, w0=w0)
 
 
 def sorted_prune_keep(ops: SortedOperands) -> torch.Tensor:
@@ -700,19 +730,21 @@ def sorted_plan(ops: SortedOperands, chunk: "int | None" = None) -> Plan:
     return _chunk_plan(s_lo, s_hi, n_sub, chunk)
 
 
-def sorted_moments_plain(ops: SortedOperands) -> torch.Tensor:
-    """Plain version of the kernel: [Q, 3] f32 moments in band order, by
-    a brute f32 containment over the same sorted, padded operands, then a
-    float64 ``mask @ [1, v, v^2]`` product (the kernel keeps its sums in
-    f64 too: an f32 sum over tens of thousands of matched rows drifts
-    past the oracle's rtol 1e-4)."""
+def sorted_moments_plain(ops: SortedOperands,
+                         out_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
+    """Plain version of the kernel: [Q, 3] moments in band order, by a
+    brute f32 containment over the same sorted, padded operands, then a
+    float64 ``mask @ [1, v, v^2]`` product rounded to ``out_dtype`` (the
+    kernel keeps its sums in f64 too: an f32 sum over tens of thousands of
+    matched rows drifts past the oracle's rtol 1e-4)."""
     mask = (ops.valid != 0)[None, :].expand(ops.q_t.shape[1], -1).clone()
     for d in range(ops.q_t.shape[0]):
         mask &= torch.abs(ops.q_t[d][:, None] - ops.keys_t[d][None, :]) \
             <= ops.w[d]
     v = ops.vals.to(torch.float64)
     feats = torch.stack([torch.ones_like(v), v, v * v], dim=1)   # [n_pad, 3]
-    return (mask.to(torch.float64) @ feats).to(torch.float32)
+    return (mask.to(torch.float64) @ feats).to(out_dtype)
 
 
 def _check_cuda(tensors: dict, dev: torch.device) -> None:
@@ -750,20 +782,25 @@ def _check_sorted_operands(ops: SortedOperands) -> None:
         raise ValueError("qb must be [2, ceil(Q / 128)] and w0 [1]")
 
 
-def _launch_band(name: str, q_t, rows, perm, w, plan: Plan) -> torch.Tensor:
+def _launch_band(name: str, q_t, rows, perm, w, plan: Plan,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Both passes of ``csrc/<name>.cu`` (band_moments.cuh) on the current
-    stream: [Q, 3] moments of the tile-ordered queries ``q_t`` [D, Q]."""
+    stream: [Q, 3] moments of the tile-ordered queries ``q_t`` [D, Q],
+    the f64 sums rounded to ``out_dtype`` (float32, or for
+    ``sorted_moments`` float64)."""
     d, q = q_t.shape
     dev = q_t.device
     partial = torch.empty((plan.max_chunks, 3, _SQT), dtype=torch.float64,
                           device=dev)
-    out = torch.empty((q, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((q, 3), dtype=out_dtype, device=dev)
     fn = getattr(_cuda.load(name), name)
     counts = profiling.counters(name, dev)
     p, grid = ctypes.c_void_p, ctypes.c_int(0)
     err = fn(p(q_t.data_ptr()), p(rows.data_ptr()), p(perm.data_ptr()),
              p(w.data_ptr()), p(plan.s_lo.data_ptr()), p(plan.s_hi.data_ptr()),
              p(plan.off.data_ptr()), q, d, plan.s_lo.shape[0], plan.chunk,
+             *(() if name == "box_moments"
+               else (int(out_dtype == torch.float64),)),
              p(partial.data_ptr()), p(out.data_ptr()),
              None if counts is None else p(counts.data_ptr()),
              p(torch.cuda.current_stream(dev).cuda_stream), ctypes.byref(grid))
@@ -774,24 +811,27 @@ def _launch_band(name: str, q_t, rows, perm, w, plan: Plan) -> torch.Tensor:
     return out
 
 
-def launch_sorted(ops: SortedOperands) -> torch.Tensor:
+def launch_sorted(ops: SortedOperands,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plan, then launch ``csrc/sorted_moments.cu`` on the current
     stream: [Q, 3] moments in band order (operands checked by the
     caller)."""
     return _launch_band("sorted_moments", ops.q_t, ops.rows, ops.perm, ops.w,
-                        sorted_plan(ops))
+                        sorted_plan(ops), out_dtype)
 
 
-def sorted_moments(ops: SortedOperands) -> torch.Tensor:
-    """[Q, 3] moments in band order: the kernel for CUDA tensors (no
-    fallback), :func:`sorted_moments_plain` for CPU tensors."""
+def sorted_moments(ops: SortedOperands,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[Q, 3] moments in band order, summed in f64 and rounded to
+    ``out_dtype`` (float32 or float64) once: the kernel for CUDA tensors
+    (no fallback), :func:`sorted_moments_plain` for CPU tensors."""
     dev = ops.q_t.device
     if dev.type == "cpu":
-        return sorted_moments_plain(ops)
+        return sorted_moments_plain(ops, out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check_sorted_operands(ops)
-    return launch_sorted(ops)
+    return launch_sorted(ops, out_dtype)
 
 
 def prepare_sorted_store(keys: torch.Tensor,         # [N, D]
@@ -799,32 +839,51 @@ def prepare_sorted_store(keys: torch.Tensor,         # [N, D]
                          valid: torch.Tensor,        # [N] bool
                          half_widths: torch.Tensor,  # [D]
                          ) -> PreparedSortedStore:
-    """The store side of the flat query, banded on dims chosen from the
-    data (:func:`_prepare_band`): the primary dim is the most selective
-    one (:func:`_selectivity`), the second the most selective other one.
-    The choice is made on the device, with no host synchronisation.  A
-    loop whose store is fixed makes it once and asks it with
-    :func:`query_sorted_prepared`.  With tracing on
-    (``utils/profiling``) it counts itself, and whether it took the
-    composite key, into ``sorted_prepare``."""
+    """The store side of the flat query for a store that many batches of
+    queries ask: a loop whose store is fixed makes it once and asks it
+    with :func:`query_sorted_prepared`.  Banded on dims chosen from the
+    data (:func:`_prepare_flat`) and, with 3 to 31 key dims, with the
+    bucketed middle level where the data take it (:func:`_prepare_band`).
+    The level's prepare and each query's two copies are paid back only
+    over many query tiles a band: a store prepared for one batch
+    (:func:`box_query_moments_sorted`) goes without it."""
+    return _prepare_flat(keys, values, valid, half_widths, middle=True)
+
+
+def _prepare_flat(keys, values, valid, half_widths, middle: bool
+                  ) -> PreparedSortedStore:
+    """The flat route's store side (:func:`_prepare_band`) on dims chosen
+    from the data: the primary dim is the most selective one
+    (:func:`_selectivity`), the second the most selective other one and,
+    with ``middle`` and 3 to 31 key dims, the middle level's dim the most
+    selective of the rest.  The choice is made on the device, with no
+    host synchronisation.  With tracing on (``utils/profiling``) it counts
+    itself, whether it took the composite key and whether it took the
+    middle level into ``sorted_prepare``."""
     keys = keys.to(torch.float32)
+    d = keys.shape[1]
     w = half_widths.to(keys.device, torch.float32)
     sel = _selectivity(keys, valid, w)
     sdim = torch.argmax(sel)
-    sdim2 = torch.argmax(sel.index_fill(0, sdim.reshape(1), -1.0))
-    prep = _prepare_band(keys, values, valid, w, sdim, sdim2)
+    sel = sel.index_fill(0, sdim.reshape(1), -1.0)
+    sdim2 = torch.argmax(sel)
+    sdim3 = (torch.argmax(sel.index_fill(0, sdim2.reshape(1), -1.0))
+             if middle and 3 <= d < _MAX_D else None)
+    prep = _prepare_band(keys, values, valid, w, sdim, sdim2, sdim3)
     counts = profiling.counters("sorted_prepare", keys.device)
     if counts is not None:
         counts[:1].add_(1)
-        counts[1:].add_(prep.composite.to(torch.int64))
+        counts[1:2].add_(prep.composite.to(torch.int64))
+        counts[2:].add_(prep.bucketed.to(torch.int64))
     return prep
 
 
-def _prepare_band(keys, values, valid, w, sdim, sdim2) -> PreparedSortedStore:
+def _prepare_band(keys, values, valid, w, sdim, sdim2, sdim3=None
+                  ) -> PreparedSortedStore:
     """The rows of f32 ``keys`` [N, D] sorted by their band key on the
     dims ``sdim`` and ``sdim2`` ([] i64, on the device of ``keys`` as
-    ``w`` is), invalid rows last, padded and laid out as the kernel reads
-    them.
+    ``w`` is) and, given ``sdim3``, the middle level on it; invalid rows
+    last, padded and laid out as the kernel reads them.
 
     Where ``a = sdim`` is discrete (``w[a] < 0.5`` and every valid row's
     key in ``a`` an integer; tested on the device) the band key is the
@@ -836,7 +895,14 @@ def _prepare_band(keys, values, valid, w, sdim, sdim2) -> PreparedSortedStore:
     contained pair lies within ``w_s`` of its query on the composite key,
     and the band half-width adds the f32 rounding of the largest
     composite key the rows and each batch of queries reach
-    (:func:`_composite_w0`, :func:`prepared_query_operands`)."""
+    (:func:`_composite_w0`, :func:`prepared_query_operands`).
+
+    Given ``sdim3`` (``b``), the rows carry their bucket of ``k_b``
+    (:func:`_middle_level`, :func:`_bucket`) as one more key column, and
+    where the composite key is taken and the valid rows span two buckets
+    or more, the key is ``(round(k_a) * n_b + bucket) * c + k_s``: a
+    contained pair then also shares the bucket (the query's copy that
+    asks it), so the same argument holds."""
     d = keys.shape[1]
     w0 = w.index_select(0, sdim.reshape(1))
     w_s = w.index_select(0, sdim2.reshape(1))
@@ -846,7 +912,18 @@ def _prepare_band(keys, values, valid, w, sdim, sdim2) -> PreparedSortedStore:
     real_s = valid & (torch.abs(k_s) < _PAD / 2)
     c = 4.0 * (_max0(torch.where(real_s, torch.abs(k_s), 0.0)) + w_s[0]
                + 1.0)
-    comp = _composite_key(k_a, k_s, c)
+    if sdim3 is None:
+        level, bucket = _no_level(sdim), k_a.new_zeros(())
+    else:
+        k_b = _index_dim(keys, sdim3)
+        level = dict(sdim3=sdim3, **_middle_level(
+            k_b, valid, w.index_select(0, sdim3.reshape(1))[0], composite))
+        # a row whose key is NaN matches nothing: bucket 0 keeps its band
+        # key, and so the sub-slice extrema, free of NaN
+        bucket = torch.nan_to_num(_bucket(
+            k_b.to(torch.float64), level["lo_b"], level["h_b"],
+            level["n_b"]), nan=0.0).to(torch.float32)
+    comp = _composite_key(k_a, k_s, c, bucket, level["n_b"])
     reach = _max0(torch.where(real_s & (torch.abs(k_a) < _PAD / 2),
                               torch.abs(comp), 0.0))
     sk = torch.where(valid, torch.where(composite, comp, k_a), _PAD)
@@ -855,11 +932,60 @@ def _prepare_band(keys, values, valid, w, sdim, sdim2) -> PreparedSortedStore:
     # the band dims are tested last: the prune has already bounded them
     perm = _dim_order(keys_s, valid_s, w,
                       (torch.where(composite, sdim2, sdim), sdim))
+    if sdim3 is not None:
+        # the bucket column after them: equal in every pair the band keeps
+        keys_s = torch.cat([keys_s, bucket[order, None]], 1)
+        w = torch.cat([w, w.new_full((1,), 0.25)])
+        perm = torch.cat([perm, perm.new_full((1,), d)])
     return _sorted_rows(keys_s, values.to(keys.device, torch.float32)[order],
                         valid_s, sk[order], w,
                         torch.where(composite, _composite_w0(w_s, reach), w0),
                         perm, sdim=sdim, sdim2=sdim2, composite=composite,
-                        comp_c=c)
+                        comp_c=c, copies=1 if sdim3 is None else 2, **level)
+
+
+def _no_level(sdim: torch.Tensor) -> dict:
+    """The level fields of a store without the middle level."""
+    one = torch.ones((), dtype=torch.float64, device=sdim.device)
+    return dict(sdim3=sdim, bucketed=torch.zeros_like(one, dtype=torch.bool),
+                lo_b=torch.zeros_like(one), h_b=one,
+                n_b=one.to(torch.float32))
+
+
+def _middle_level(k_b, valid, w_b, composite) -> dict:
+    """The bucketed middle level on the f32 keys ``k_b`` [N]: buckets of
+    width ``h = max(4 w_b, 2^-16 max |k|)`` from ``lo_b``, the smallest of
+    the valid rows' real keys (sentinel-scale ones left out); ``n_b`` the
+    number of buckets they span.  Taken (``bucketed``) where ``composite``
+    holds and ``n_b >= 2``; elsewhere the fields are those of no level
+    (one bucket, 0), so every row's bucket is 0.
+
+    A query box of half-width ``w_b``, widened for rounding
+    (:func:`_query_buckets`), is shorter than ``h`` wherever it reaches a
+    bucket inside the span, so it reaches at most two buckets; ``n_b``
+    stays under ``2^17 + 2``, so every bucket is an exact f32 integer."""
+    real = valid & (torch.abs(k_b) < _PAD / 2)
+    kb = k_b.to(torch.float64)
+    inf = kb.new_full((1,), torch.inf)
+    lo = torch.cat([torch.where(real, kb, torch.inf), inf]).amin()
+    hi = torch.cat([torch.where(real, kb, -torch.inf), -inf]).amax()
+    h = torch.maximum(4.0 * w_b.to(torch.float64),
+                      torch.maximum(lo.abs(), hi.abs()) * 2.0 ** -16)
+    n_b = torch.floor((hi - lo) / h) + 1.0
+    bucketed = composite & (n_b >= 2.0)
+    return dict(bucketed=bucketed, lo_b=torch.where(bucketed, lo, 0.0),
+                h_b=torch.where(bucketed, h, 1.0),
+                n_b=torch.where(bucketed, n_b, 1.0).to(torch.float32))
+
+
+def _bucket(x: torch.Tensor, lo_b: torch.Tensor, h_b: torch.Tensor,
+            n_b: torch.Tensor) -> torch.Tensor:
+    """f64 bucket of the f64 keys ``x`` on the middle level:
+    ``floor((x - lo_b) / h_b)`` clamped into ``[0, n_b)`` (NaN for NaN).
+    Rows and queries take this one function: it is monotone in ``x``, so
+    a row key between two query bounds lies in a bucket between theirs."""
+    return torch.minimum(torch.clamp(torch.floor((x - lo_b) / h_b),
+                                     min=0.0), n_b - 1.0)
 
 
 def _max0(x: torch.Tensor) -> torch.Tensor:
@@ -867,15 +993,20 @@ def _max0(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x.reshape(-1), x.new_zeros(1)]).amax()
 
 
-def _composite_key(k_a: torch.Tensor, k_s: torch.Tensor, c: torch.Tensor
-                   ) -> torch.Tensor:
-    """The composite band key ``round(k_a) * c + k_s`` in f32, rows and
-    queries alike: a row and a query with the same ``round(k_a)`` share
-    the product bit for bit."""
-    return torch.round(k_a) * c + k_s
+def _composite_key(k_a: torch.Tensor, k_s: torch.Tensor, c: torch.Tensor,
+                   bucket: torch.Tensor, n_b: torch.Tensor) -> torch.Tensor:
+    """The composite band key ``(round(k_a) * n_b + bucket) * c + k_s`` in
+    f32, rows and queries alike: a row and a query with the same
+    ``round(k_a)`` and bucket share the product bit for bit.  Without the
+    middle level (``n_b`` 1, every bucket 0) it is ``round(k_a) * c +
+    k_s``, the same bits but for the sign of a zero."""
+    return (torch.round(k_a) * n_b + bucket) * c + k_s
 
 
 _ROUND_PAD = 2.0 ** -21  # 8x f32's half ulp, relative
+# How far a query's bucket bounds reach past its box, relative to its
+# |key| and half-width: past the f32 test's and the f64 bounds' rounding.
+_BUCKET_PAD = 2.0 ** -20
 
 
 def _composite_w0(w_s: torch.Tensor, reach: torch.Tensor) -> torch.Tensor:
@@ -888,44 +1019,105 @@ def _composite_w0(w_s: torch.Tensor, reach: torch.Tensor) -> torch.Tensor:
     return w_s + (reach + 2.0 * w_s + 1.0) * _ROUND_PAD
 
 
+def _query_buckets(prep: PreparedSortedStore, q_b: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The buckets the two copies of each query ask, [2, Q] f32, from the
+    queries' f32 keys ``q_b`` [Q] in the level's dim; and ``split`` [Q]
+    bool.  Copy 0 asks the bucket of ``q_b - r``, copy 1 the next one,
+    live only where the bucket of ``q_b + r`` is past copy 0's
+    (``split``); a dead copy asks NaN, so it matches nothing.  ``r`` is
+    ``w_b`` widened by ``_BUCKET_PAD``: every row key that passes the f32
+    test ``|q_b - k_b| <= w_b`` lies in ``[q_b - r, q_b + r]``, so its
+    bucket is one of the copies', and it matches only that copy on the
+    bucket column."""
+    q_b = q_b.to(torch.float64)
+    w_b = prep.w.index_select(0, prep.sdim3.reshape(1)).to(torch.float64)
+    r = w_b * (1.0 + _BUCKET_PAD) + torch.abs(q_b) * _BUCKET_PAD
+    b = _bucket(torch.stack([q_b - r, q_b + r]), prep.lo_b, prep.h_b,
+                prep.n_b)
+    split = b[1] > b[0]
+    b[1].masked_fill_(~split, torch.nan)
+    return b.to(torch.float32), split
+
+
 def prepared_query_operands(prep: PreparedSortedStore, queries: torch.Tensor
                             ) -> Tuple[SortedOperands, torch.Tensor]:
     """The operands of the flat queries [Q, D] against a prepared store,
-    in band order, and ``qorder`` [Q] (band position -> query row).  On
-    the composite key the band half-width adds ``_ROUND_PAD`` of the
+    in band order, and ``qorder`` (band position -> query row; with
+    ``prep.copies`` 2 the band orders the [2Q] copies, copy ``k`` of query
+    ``i`` at ``k Q + i``, so ``qorder % Q`` is the query, and each copy
+    holds the query and, last, the bucket it asks, :func:`_query_buckets`).
+    On the composite key the band half-width adds ``_ROUND_PAD`` of the
     queries' largest |key| to the store's (a contained pair's row key
     lies within ``w_s`` of its query's); a NaN query matches nothing and
-    adds nothing."""
-    queries = queries.to(torch.float32)
-    qk = _index_dim(queries, prep.sdim)
-    comp = _composite_key(qk, _index_dim(queries, prep.sdim2), prep.comp_c)
+    adds nothing, and dead copies (NaN keys) sort last.  With tracing on
+    (``utils/profiling``) it counts the queries asked as two copies into
+    ``sorted_query.split``."""
+    q, d = queries.shape
+    q_t = queries.to(torch.float32).T.contiguous()               # [D, Q]
+    qk, qs = (q_t.index_select(0, dim.reshape(1))[0]
+              for dim in (prep.sdim, prep.sdim2))
+    bucket = qk.new_zeros(())
+    if prep.copies == 2:
+        bucket, split = _query_buckets(
+            prep, q_t.index_select(0, prep.sdim3.reshape(1))[0])
+        counts = profiling.counters("sorted_query", queries.device)
+        if counts is not None:
+            counts.add_(split.sum())
+    comp = _composite_key(qk, qs, prep.comp_c, bucket, prep.n_b)  # [(2,) Q]
     reach = torch.nan_to_num(torch.abs(comp), nan=0.0).amax()
     w0 = prep.w0 + torch.where(prep.composite, reach, 0.0) * _ROUND_PAD
     qk = torch.where(prep.composite, comp, qk)
+    if prep.copies == 2:
+        qk = torch.where(torch.isnan(bucket), torch.nan, qk).reshape(-1)
     qorder = torch.argsort(qk, stable=True)
-    return _with_queries(prep, queries[qorder], qk[qorder], w0), qorder
+    ops_q = torch.empty((d + prep.copies - 1, qorder.shape[0]),
+                        dtype=torch.float32, device=queries.device)
+    torch.index_select(q_t, 1, qorder if prep.copies == 1
+                       else torch.remainder(qorder, q), out=ops_q[:d])
+    if prep.copies == 2:
+        torch.index_select(bucket.reshape(-1), 0, qorder, out=ops_q[d])
+    return _with_queries(prep, ops_q, qk[qorder], w0), qorder
 
 
 def sorted_query_operands(keys, values, valid, queries, half_widths
                           ) -> Tuple[SortedOperands, torch.Tensor]:
-    """Band order of the flat query (:func:`prepare_sorted_store`, then
+    """Band order of the flat query as :func:`box_query_moments_sorted`
+    asks it (:func:`_prepare_flat` without the middle level, then
     :func:`prepared_query_operands`).  Returns the operands and
     ``qorder`` [Q] (band position -> query row)."""
     return prepared_query_operands(
-        prepare_sorted_store(keys, values, valid, half_widths), queries)
+        _prepare_flat(keys, values, valid, half_widths, middle=False),
+        queries)
+
+
+def unsort_moments(out: torch.Tensor, qorder: torch.Tensor, q: int
+                   ) -> torch.Tensor:
+    """[Q, 3] f32 moments of ``q`` queries in their own order from the
+    band-ordered moments ``out`` of their operands and ``qorder``
+    (:func:`prepared_query_operands`).  Where each query was asked as two
+    copies, ``out`` holds f64 sums: a query's copies are added in f64,
+    then rounded to f32 once."""
+    full = torch.empty_like(out).index_copy_(0, qorder, out)
+    if out.shape[0] != q:
+        full = full.reshape(2, q, 3)
+        full = full[0] + full[1]
+    return full.to(torch.float32)
 
 
 def query_sorted_prepared(prep: PreparedSortedStore, queries: torch.Tensor
                           ) -> torch.Tensor:
     """[Q, 3] f32 moments of the flat queries [Q, D] against a prepared
     store, in the queries' own order: their band sort, the plan, the
-    launch (the plain version for CPU tensors) and the un-sort, with no
-    host synchronisation (a captured tick can hold it)."""
+    launch (the plain version for CPU tensors) and the un-sort
+    (:func:`unsort_moments`), with no host synchronisation (a captured
+    tick can hold it)."""
     if queries.shape[0] == 0:
         return torch.zeros((0, 3), device=queries.device)
     ops, qorder = prepared_query_operands(prep, queries)
-    out = sorted_moments(ops)
-    return torch.empty_like(out).index_copy_(0, qorder, out)   # un-sort
+    out = sorted_moments(ops, torch.float32 if prep.copies == 1
+                         else torch.float64)
+    return unsort_moments(out, qorder, queries.shape[0])
 
 
 def box_query_moments_sorted(keys: torch.Tensor,         # [N, D]
@@ -936,12 +1128,14 @@ def box_query_moments_sorted(keys: torch.Tensor,         # [N, D]
                              ) -> torch.Tensor:
     """[Q, 3] f32 moments (count, sum v, sum v^2) of the valid rows whose
     boxes contain each query, through the sorted-band kernel
-    (``pallas_store.py::box_query_moments_sorted``): the store prepared,
+    (``pallas_store.py::box_query_moments_sorted``): the store prepared
+    for this batch (:func:`_prepare_flat`, without the middle level),
     then queried."""
     if queries.shape[0] == 0:
         return torch.zeros((0, 3), device=queries.device)
     return query_sorted_prepared(
-        prepare_sorted_store(keys, values, valid, half_widths), queries)
+        _prepare_flat(keys, values, valid, half_widths, middle=False),
+        queries)
 
 
 def _grouped_store(keys, values, valid, half_widths, action_dim: int,

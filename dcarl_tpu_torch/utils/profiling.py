@@ -42,9 +42,13 @@ dqn.py:273-286).  Here the operator's API is:
   pairs it walks and matches, into int64 totals on the device
   (:data:`COUNTERS`).  Off, each launch passes no pointer and runs the
   instantiation without counters.  ``ops/store_kernels.py``'s
-  ``prepare_sorted_store`` adds one to ``sorted_prepare.prepares`` a
-  call, and to ``sorted_prepare.composite`` when it bands on the
-  composite (action, second dim) key, with device adds.
+  flat route's prepare (``prepare_sorted_store``,
+  ``box_query_moments_sorted``) adds one to ``sorted_prepare.prepares`` a
+  call, to ``sorted_prepare.composite`` when it bands on the composite
+  (action, second dim) key and to ``sorted_prepare.bucketed`` when that
+  key holds the bucketed middle level; ``prepared_query_operands`` adds
+  the queries it asks as two copies to ``sorted_query.split``; all with
+  device adds.
 * :func:`snapshot`: the registered phase tables and the counter totals
   (one host read, made only when asked).
 * :func:`trace`: a ``torch.profiler`` Chrome trace of a block, written
@@ -65,12 +69,14 @@ import torch
 from dcarl_tpu_torch.ops import _cuda
 
 # What each store-query kernel counts, in the order its C entry point
-# writes the totals, and last what the flat route's store prepare counts.
+# writes the totals, and last what the flat route's store prepare and
+# query count.
 COUNTERS: Dict[str, Tuple[str, ...]] = {
     "peraction_moments": ("walked", "matched", "held", "warp_rows"),
     "sorted_moments": ("walked", "matched"),
     "box_moments": ("walked", "matched"),
-    "sorted_prepare": ("prepares", "composite"),
+    "sorted_prepare": ("prepares", "composite", "bucketed"),
+    "sorted_query": ("split",),
 }
 _OFFSET: Dict[str, int] = {}   # kernel -> its first slot in the totals
 _N_COUNTERS = 0

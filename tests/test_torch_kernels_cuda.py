@@ -320,12 +320,12 @@ def test_sorted_and_brute_kernels_every_key_width(cuda, d):
     _check(K.box_query_moments_brute(k, v, m, qq, w), ref)
 
 
-def _plain_in_chunks(ops, chunk=1 << 14):
+def _plain_in_chunks(ops, chunk=1 << 14, out_dtype=torch.float32):
     """sorted_moments_plain over slices of the queries (its [Q, N]
     containment mask would not fit at once)."""
     return torch.cat([K.sorted_moments_plain(ops._replace(
-        q_t=ops.q_t[:, i:i + chunk])) for i in range(0, ops.q_t.shape[1],
-                                                      chunk)])
+        q_t=ops.q_t[:, i:i + chunk]), out_dtype)
+        for i in range(0, ops.q_t.shape[1], chunk)])
 
 
 def test_sorted_kernel_on_a_trust_set(cuda):
@@ -492,15 +492,16 @@ def test_full_and_masked_stores_agree_bit_for_bit(cuda):
 def _lane_store(rng, n, b):
     """Lane-shaped rows: 20 clustered state dims at the field's
     half-widths (dim 1 the 0/1 ego lane), an integer action 0-7 in dim 20
-    at w 0.1, a tenth invalid; and the 8 candidate keys of ``b`` states
-    near the rows."""
+    at w 0.1, a tenth invalid, values on a 2^-8 grid (every f64 sum of
+    them and of their squares is exact, in any order); and the 8
+    candidate keys of ``b`` states near the rows."""
     w = np.asarray(FIELD_HALF_WIDTHS, np.float32)
     centers = rng.normal(0, 1, (64, 21)) * w * 6
     keys = (centers[rng.integers(0, 64, n)]
             + rng.normal(0, 1, (n, 21)) * w).astype(np.float32)
     keys[:, 1] = rng.integers(0, 2, n)
     keys[:, -1] = rng.integers(0, 8, n)
-    values = rng.normal(0, 1, n).astype(np.float32)
+    values = (np.round(rng.normal(0, 1, n) * 256) / 256).astype(np.float32)
     valid = rng.random(n) < 0.9
     near = rng.integers(0, n, b)
     obs = (keys[near, :20] + rng.normal(0, 0.5, (b, 20)) * w[:20])
@@ -512,13 +513,17 @@ def _lane_store(rng, n, b):
 
 def test_sorted_kernel_on_the_composite_band(cuda):
     """Lane-shaped operands (2^15 rows, the 8 candidate keys of 2,048
-    states): the prepare bands on (action, second dim) and the kernel
-    equals its plain version; with tracing on, the prepare counts a
-    composite prepare and the kernel walks under half the pairs it walks
-    on the flat key (one valid row's action off the integers); a CUDA
-    graph of ``query_sorted_prepared`` replays bit-equal to the eager
-    call, for its captured queries and for new ones copied in (the query
-    holds no host synchronisation)."""
+    states): the prepare bands on (action, second dim) with the bucketed
+    middle level, and the kernel's answer, each query's copies added,
+    equals the plain route's bit for bit.  With tracing on, the prepare
+    counts a composite, bucketed prepare; the query counts the queries it
+    asks as two copies; the kernel's matched total is the count it
+    returned, and it walks under half the pairs it walks on the flat key
+    (one valid row's action off the integers: neither the composite key
+    nor the level, no query split).  A CUDA graph of
+    ``query_sorted_prepared`` replays bit-equal to the eager call, for its
+    captured queries and for new ones copied in, and neither the prepare
+    nor the query synchronises with the host."""
     from dcarl_tpu_torch.utils import profiling as PR
 
     rng = np.random.default_rng(20)
@@ -527,7 +532,8 @@ def test_sorted_kernel_on_the_composite_band(cuda):
     flat_keys[np.flatnonzero(valid)[0], -1] += 0.25
     k, fk, v, m, qq, ww = (torch.as_tensor(a, device=cuda) for a in
                            (keys, flat_keys, values, valid, queries, w))
-    counts = []
+    nq = len(queries)
+    runs = []
     PR.enable()
     try:
         for kk in (k, fk):
@@ -536,24 +542,41 @@ def test_sorted_kernel_on_the_composite_band(cuda):
             ops, qorder = K.prepared_query_operands(prep, qq)
             got = K.sorted_moments(ops)
             last = PR.snapshot()["counters"]
-            counts.append({n: last[n] - first.get(n, 0) for n in last})
+            runs.append(({n: last[n] - first.get(n, 0) for n in last}, ops,
+                         qorder, got))
     finally:
         PR.enable(False)
-    comp, flat = counts
-    assert (comp["sorted_prepare.prepares"], comp["sorted_prepare.composite"]
-            ) == (1, 1)
-    assert (flat["sorted_prepare.prepares"], flat["sorted_prepare.composite"]
-            ) == (1, 0)
+    (comp, ops, qorder, got), (flat, *_) = runs
+    assert [comp[f"sorted_prepare.{n}"] for n in
+            ("prepares", "composite", "bucketed")] == [1, 1, 1]
+    assert [flat[f"sorted_prepare.{n}"] for n in
+            ("prepares", "composite", "bucketed")] == [1, 0, 0]
+    second = int((~torch.isnan(ops.q_t[-1]) & (qorder >= nq)).sum())
+    assert comp["sorted_query.split"] == second > 0
+    assert flat["sorted_query.split"] == 0
+    assert comp["sorted_moments.matched"] == int(got[:, 0].sum()) > 0
     assert 0 < comp["sorted_moments.walked"] < 0.5 * flat["sorted_moments.walked"]
-    assert comp["sorted_moments.matched"] > 0
 
     prep = K.prepare_sorted_store(k, v, m, ww)
-    assert bool(prep.composite) and int(prep.sdim) == 20
+    assert bool(prep.composite) and bool(prep.bucketed)
+    assert int(prep.sdim) == 20 and prep.copies == 2
     ops, qorder = K.prepared_query_operands(prep, qq)
-    got = K.sorted_moments(ops)
-    _check(got, _plain_in_chunks(ops))
+    got = K.sorted_moments(ops, torch.float64)
+    plain = _plain_in_chunks(ops, out_dtype=torch.float64)
+    _check(got, plain)
     eager = K.query_sorted_prepared(prep, qq)
-    assert torch.equal(eager[qorder], got)
+    assert torch.equal(eager, K.unsort_moments(got, qorder, nq))
+    assert torch.equal(eager, K.unsort_moments(plain, qorder, nq))
+    _check(eager, K.brute_moments_plain(k, v, m, qq, ww))
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = K.query_sorted_prepared(K.prepare_sorted_store(k, v, m, ww),
+                                        qq)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(again, eager)
 
     static_q = qq.clone()
     side = torch.cuda.Stream()

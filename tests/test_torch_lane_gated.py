@@ -14,6 +14,9 @@ and one ``moments_sum`` a replayed tick.  On the card: ``python -m pytest
 imports JAX.
 """
 
+import functools
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -174,30 +177,82 @@ def test_fill_lane_store_wraps_its_ring_with_the_behaviour_policys_records():
     assert all(torch.equal(a, b) for a, b in zip(store, again))
 
 
-def test_prepared_lane_fill_bands_on_the_composite_key():
-    """A lane fill (128 envs x 40 ticks into 2^12 rows): the prepare bands
-    on the composite (action, next most selective dim) key, and
-    ``query_sorted_prepared`` answers candidate keys near the rows and of
-    random lane states as the brute ``_raw_moments`` does: counts exact,
-    sums within rtol 1e-4 / atol 1e-3."""
+# sha256 (first 16 hex digits) of the grouped route's operands and query
+# order on the lane fill of the tests below, as the route made them before
+# the flat route took the bucketed middle level: the grouped route takes
+# none, so they stay the same bits.
+GROUPED_LANE_DIGEST = "0ecfb8698636a95e"
+# The same of the one-batch flat route's (``sorted_query_operands``)
+# operands and query order, and of ``box_query_moments_sorted``'s moments:
+# a store prepared for one batch takes no middle level either.
+FLAT_LANE_DIGESTS = ("492f48d91e72ac89", "7d790b809c5276b6")
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=1)
+def _lane_fill():
+    """A lane fill (128 envs x 128 ticks, the cell's fill length, into
+    2^12 rows), its valid mask, and the candidate keys of 384 states near
+    its rows and of 128 random lane states."""
     store, _ = fill_lane_store(store_cfg=StoreConfig(value_mode="nstep"),
-                               envs=128, ticks=40, capacity=1 << 12, seed=7,
+                               envs=128, ticks=128, capacity=1 << 12, seed=7,
                                device=CPU)
-    valid = ST.store_valid(store)
-    prep = K.prepare_sorted_store(store.keys, store.values, valid, HW)
-    assert bool(prep.composite) and int(prep.sdim) == 20
-    assert int(prep.sdim2) != 20
     g = _gen(8)
     rows = torch.randint(0, 1 << 12, (384,), generator=g)
     near = store.keys[rows, :20] + torch.randn(384, 20, generator=g) * HW[:20]
     far = DEC.wrap_state(ML.to_multilane_state(_state(128, 9),
                                                ML.MultiLaneEnvConfig()))
     queries = RLS.candidate_keys(torch.cat([near, far]), 8).reshape(-1, 21)
+    return store, ST.store_valid(store), queries
+
+
+def test_prepared_lane_fill_bands_on_the_composite_key():
+    """A lane fill (128 envs x 128 ticks, the cell's fill length, into
+    2^12 rows): the prepare bands on the composite (action, dim 8) key
+    with the bucketed middle level on dim 4 (the lane-0 front vehicle's
+    s), and ``query_sorted_prepared`` answers candidate keys near the
+    rows and of random lane states as the brute ``_raw_moments`` does:
+    counts exact, sums within rtol 1e-4 / atol 1e-3.  The grouped route
+    on (action, ego lane) takes no middle level: its operands are those
+    it made before, bit for bit (``GROUPED_LANE_DIGEST``)."""
+    store, valid, queries = _lane_fill()
+    prep = K.prepare_sorted_store(store.keys, store.values, valid, HW)
+    assert bool(prep.composite) and bool(prep.bucketed)
+    assert (int(prep.sdim), int(prep.sdim2), int(prep.sdim3)) == (20, 8, 4)
+    assert prep.copies == 2 and int(prep.n_b) >= 2
     got = K.query_sorted_prepared(prep, queries)
     want = ST._raw_moments(store.keys, store.values, valid, queries, HW)
     assert got[:, 0].sum() > 0
     assert torch.equal(got[:, 0], want[:, 0])
     torch.testing.assert_close(got[:, 1:], want[:, 1:], rtol=1e-4, atol=1e-3)
+    ops, qorder = K.grouped_query_operands(store.keys, store.values, valid,
+                                           queries[None], HW, -1, 1)
+    assert ops.q_t.shape == (21, len(queries))
+    assert _digest([*ops, qorder]) == GROUPED_LANE_DIGEST
+
+
+def test_one_batch_flat_route_keeps_its_operands():
+    """On the lane fill, whose prepared store takes the middle level, the
+    flat route for one batch (``box_query_moments_sorted``, and
+    ``sorted_query_operands``, what it launches) takes none: one copy a
+    query, and its operands, query order and moments are those it made
+    before the level, bit for bit (``FLAT_LANE_DIGESTS``); its moments
+    equal the prepared route's."""
+    store, valid, queries = _lane_fill()
+    ops, qorder = K.sorted_query_operands(store.keys, store.values, valid,
+                                          queries, HW)
+    assert ops.q_t.shape == (21, len(queries))
+    got = K.box_query_moments_sorted(store.keys, store.values, valid,
+                                     queries, HW)
+    assert (_digest([*ops, qorder]), _digest([got])) == FLAT_LANE_DIGESTS
+    prep = K.prepare_sorted_store(store.keys, store.values, valid, HW)
+    assert torch.equal(K.query_sorted_prepared(prep, queries), got)
 
 
 def _state(b, seed):

@@ -161,8 +161,8 @@ def test_the_capture_key_holds_the_switch():
 @pytest.mark.parametrize("devices", [1, 2])
 def test_snapshot_reads_the_totals_by_name(monkeypatch, devices):
     """Each counter by its name, in the kernels' layout (the per-action
-    kernel's four first, the flat route's prepare last), summed over the
-    devices that hold totals."""
+    kernel's four first, the flat route's prepare and query last), summed
+    over the devices that hold totals."""
     tot = torch.arange(PR._N_COUNTERS, dtype=torch.int64)
     totals = {torch.device("cpu"): tot}
     if devices == 2:
@@ -179,7 +179,8 @@ def test_snapshot_reads_the_totals_by_name(monkeypatch, devices):
         "sorted_moments.walked": 4, "sorted_moments.matched": 5,
         "box_moments.walked": 6, "box_moments.matched": 7,
         "sorted_prepare.prepares": 8,
-        "sorted_prepare.composite": 9}.items()}
+        "sorted_prepare.composite": 9, "sorted_prepare.bucketed": 10,
+        "sorted_query.split": 11}.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -306,9 +307,12 @@ def test_sorted_prepare_counts_itself_and_its_composite_key(
         monkeypatch, integer_action):
     """With the switch on, ``prepare_sorted_store`` adds one a call to
     ``sorted_prepare.prepares`` and, where it bands on the composite
-    (action, second dim) key, to ``.composite``: an integer action at w
-    0.1 does, one valid row off the integers does not (the totals stand
-    in on the CPU)."""
+    (action, second dim) key, to ``.composite``, and where that key holds
+    the bucketed middle level (the third dim spans three buckets of 4 w),
+    to ``.bucketed``: an integer action at w 0.1 does, one valid row off
+    the integers does neither.  ``prepared_query_operands`` adds the
+    queries it asks as two copies (a live second copy each) to
+    ``sorted_query.split`` (the totals stand in on the CPU)."""
     tot = torch.zeros(PR._N_COUNTERS, dtype=torch.int64)
     monkeypatch.setattr(PR, "_TOTALS", {torch.device("cpu"): tot})
     monkeypatch.setattr(PR, "counters", lambda kernel, device: tot[
@@ -319,12 +323,21 @@ def test_sorted_prepare_counts_itself_and_its_composite_key(
     if not integer_action:
         keys[0, -1] += 0.25
     w = torch.tensor([2.0, 2.0, 2.0, 2.0, 0.1])
+    queries = torch.as_tensor(keys[:300] + rng.normal(0, 1, (300, 5))
+                              .astype(np.float32) * 0.5 * w.numpy())
+    split = 0
     for _ in range(2):
-        K.prepare_sorted_store(torch.as_tensor(keys), torch.ones(600),
-                               torch.ones(600, dtype=torch.bool), w)
+        prep = K.prepare_sorted_store(torch.as_tensor(keys), torch.ones(600),
+                                      torch.ones(600, dtype=torch.bool), w)
+        ops, qorder = K.prepared_query_operands(prep, queries)
+        second = qorder >= len(queries)
+        split += int((~torch.isnan(ops.q_t[-1]) & second).sum())
     snap = PR.snapshot()["counters"]
     assert snap["sorted_prepare.prepares"] == 2
     assert snap["sorted_prepare.composite"] == (2 if integer_action else 0)
+    assert snap["sorted_prepare.bucketed"] == (2 if integer_action else 0)
+    assert snap["sorted_query.split"] == split
+    assert (split > 0) == integer_action
 
 
 def test_finish_gives_the_counters_over_the_stretch(monkeypatch):

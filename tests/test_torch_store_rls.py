@@ -450,13 +450,21 @@ def test_grouped_query_matches_jax_kernel(store):
     _assert_moments(got, brute.numpy().reshape(got.shape))
 
 
-def _assert_prune_keeps(ops, min_pairs):
-    """Every contained (query, valid row) pair of the band-ordered
-    operands lies in a (query tile, sub-slice) pair the prune keeps."""
+def _contained(ops):
+    """[Q, n_pad] bool: the contained (query, valid row) pairs of the
+    band-ordered operands, by the kernel's f32 test."""
     mask = (ops.valid != 0)[None, :].expand(ops.q_t.shape[1], -1).clone()
     for dd in range(ops.q_t.shape[0]):
         mask &= (ops.q_t[dd][:, None] - ops.keys_t[dd][None, :]).abs() \
             <= ops.w[dd]
+    return mask
+
+
+def _assert_prune_keeps(ops, min_pairs, mask=None):
+    """Every contained (query, valid row) pair of the band-ordered
+    operands lies in a (query tile, sub-slice) pair the prune keeps."""
+    if mask is None:
+        mask = _contained(ops)
     q_idx, r_idx = torch.nonzero(mask, as_tuple=True)
     assert q_idx.numel() >= min_pairs
     keep = K.sorted_prune_keep(ops)
@@ -496,23 +504,30 @@ def test_sorted_prune_keeps_every_contained_pair(seed):
     assert 0 < keep.float().mean() < 0.6
 
 
-def _lane_like_inputs(seed, n=12000, q=4096, sentinel=True):
+def _lane_like_inputs(seed, n=12000, q=4096, sentinel=True, middle=False):
     """A lane-shaped store: 20 clustered state dims at the field's
     half-widths (dim 1 the 0/1 ego lane), an integer action 0-7 in dim 20
     at w 0.1, a tenth invalid and (``sentinel``) 3 % valid rows at the
     1e9 sentinel (dense-block writes); queries are candidate keys near
     the rows.  Dim 8 spreads over 40 half-widths of 0.2: the sentinel
     rows' spread swamps every dim's, so the second band dim is the one
-    whose half-width is next narrowest."""
+    whose half-width is next narrowest.  The third is then one of the
+    0.3-wide dims: the ego lane, whose 0 / 1 keys lie in one bucket of
+    4 w; with ``middle`` it is dim 4, at w 0.25 and spread over 48 of
+    them (12 buckets), so the prepare takes the bucketed middle level."""
     rng = np.random.default_rng(seed)
     d = 21
     w = np.asarray(S.FIELD_HALF_WIDTHS, np.float32)
     w[8] = 0.2
+    if middle:
+        w[4] = 0.25
     centers = rng.normal(0, 1, (32, d)) * w * 6
     keys = (centers[rng.integers(0, 32, n)]
             + rng.normal(0, 1, (n, d)) * w).astype(np.float32)
     keys[:, 1] = rng.integers(0, 2, n)
     keys[:, 8] = rng.uniform(-4, 4, n)
+    if middle:
+        keys[:, 4] = rng.uniform(-6, 6, n)
     keys[:, -1] = rng.integers(0, 8, n)
     if sentinel:
         keys[rng.random(n) < 0.03] = S.SENTINEL_KEY
@@ -539,9 +554,11 @@ def _flat_key_operands(keys, values, valid, queries, w):
                           w, w[a].reshape(1), K._dim_order(
                               keys[order], valid[order], w, (a,)), sdim=a,
                           sdim2=a, composite=torch.tensor(False),
-                          comp_c=torch.tensor(0.0))
+                          comp_c=torch.tensor(0.0), copies=1,
+                          **K._no_level(a))
     qorder = torch.argsort(queries[:, a], stable=True)
-    return K._with_queries(prep, queries[qorder], queries[qorder, a],
+    return K._with_queries(prep, queries[qorder].T.contiguous(),
+                           queries[qorder, a],
                            prep.w0), qorder
 
 
@@ -550,26 +567,104 @@ def _assert_operands_equal(got, want):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
+def _assert_holds_one_copy_operands(got, got_order, want, want_order,
+                                    n):
+    """``got``, operands of a store with the bucket column where the level
+    is not taken, hold ``want`` (the operands without it) bit for bit: the
+    same rows, records and dim order with the bucket column (0 in each of
+    the ``n`` rows) last, the same queries in the same order in the first
+    Q copies (bucket 0) and their tiles' extrema, then dead copies (bucket
+    NaN) in tiles that keep nothing."""
+    d, q = want.q_t.shape
+    n_qt = want.qb.shape[1]
+    assert got.q_t.shape == (d + 1, 2 * q)
+    for name in ("vals", "valid", "kb", "w0"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(got.keys_t[:d], want.keys_t)
+    assert torch.equal(got.w[:d], want.w) and float(got.w[d]) == 0.25
+    assert torch.equal(got.perm[:d], want.perm) and int(got.perm[d]) == d
+    assert torch.equal(got.rows[:, :d], want.rows[:, :d])
+    assert torch.equal(got.rows, K._band_rows(got.keys_t, got.vals,
+                                              got.valid, got.perm))
+    assert not got.keys_t[d, :n].any() and not got.q_t[d, :q].any()
+    assert (got.keys_t[d, n:] == K._PAD).all()
+    assert torch.equal(got.q_t[:d, :q], want.q_t)
+    assert torch.equal(got_order[:q], want_order)
+    assert torch.isnan(got.q_t[d, q:]).all()
+    assert torch.equal(got.qb[:, :n_qt], want.qb)
+    dead = got.qb[:, -(-q // K._SQT):]
+    assert (dead[0] == torch.inf).all() and (dead[1] == -torch.inf).all()
+
+
+def _walked(ops):
+    """(query, valid row) pairs the kernel walks on the operands: each
+    tile's query slots times the valid rows of its window."""
+    plan = K.sorted_plan(ops)
+    rows = (ops.valid != 0).reshape(-1, K._SSUB_N).sum(1).cumsum(0)
+    rows = torch.cat([rows.new_zeros(1), rows])
+    n_q = ops.q_t.shape[1]
+    slots = torch.clamp(n_q - torch.arange(plan.s_lo.shape[0]) * K._SQT,
+                        max=K._SQT)
+    return int(((rows[plan.s_hi.long()] - rows[plan.s_lo.long()])
+                * slots).sum())
+
+
 @pytest.mark.parametrize("case", ["near", "outside_span", "off_lattice",
-                                  "sentinel_queries"])
+                                  "sentinel_queries", "bucket_edge",
+                                  "straddle", "below_b", "above_b",
+                                  "nan_queries", "one_bucket", "walked"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_composite_prune_keeps_every_contained_pair(seed, case):
-    """The flat route bands a lane-shaped store on (action, second dim):
-    every contained pair stays in a kept (tile, sub-slice) pair, on a
-    store with valid sentinel rows, for queries near the rows, with the
-    second dim outside the rows' span, with non-integer and x.5 actions,
-    and with queries at the sentinel; the prune keeps under half of what
-    the flat key's keeps on the same operands."""
-    keys, values, valid, queries, w = _lane_like_inputs(seed)
+    """The flat route bands a lane-shaped store with valid sentinel rows
+    on (action, second dim) and the bucketed middle level: every
+    contained (query copy, row) pair stays in a kept (tile, sub-slice)
+    pair and the copies' summed counts equal the brute ``_raw_moments``
+    (each pair counted once), for queries near the rows, with the second
+    dim outside the rows' span, with non-integer and x.5 actions, at the
+    sentinel; with rows on bucket edges and queries a half-width either
+    side of them, boxes straddling an edge, below and above the rows'
+    span of the level's dim (both copies clamped into one bucket), NaN in
+    every dim or in the level's.  The prune keeps under half of what the
+    flat key's keeps.  Where no third dim spans two buckets
+    (``one_bucket``), the operands are the composite key's bit for bit.
+    On 2^16 rows, with (action, bucket) bands of several sub-slices, the
+    plan walks fewer pairs than on the composite key alone (``walked``:
+    the plans only)."""
+    if case == "walked":
+        keys, values, valid, queries, w = _lane_like_inputs(
+            seed, 1 << 16, 1 << 14, middle=True)
+        t = [_t(a) for a in (keys, values, valid, queries, w)]
+        prep = K.prepare_sorted_store(*t[:3], t[4])
+        assert bool(prep.bucketed) and int(prep.sdim3) == 4
+        comp = K._prepare_band(*t[:3], t[4], prep.sdim, prep.sdim2)
+        assert _walked(K.prepared_query_operands(prep, t[3])[0]) \
+            < 0.9 * _walked(K.prepared_query_operands(comp, t[3])[0])
+        return
+    old_case = case in ("near", "outside_span", "off_lattice",
+                        "sentinel_queries")
+    keys, values, valid, queries, w = _lane_like_inputs(
+        seed, q=4096 if old_case else 1024, middle=case != "one_bucket")
+    if case == "one_bucket":
+        # every dim but the band's two within one bucket of 4 w
+        squeeze = np.ones(21, np.float32)
+        squeeze[:20] = 0.05
+        squeeze[8] = 1.0
+        keys = np.where(keys < 1e8, keys * squeeze, keys)
+        queries = queries * squeeze
     t = [_t(a) for a in (keys, values, valid)]
     prep = K.prepare_sorted_store(*t, _t(w))
     assert bool(prep.composite) and int(prep.sdim) == 20
     s = int(prep.sdim2)
-    assert s == 8
+    assert s == 8 and prep.copies == 2
+    b = int(prep.sdim3)
+    assert bool(prep.bucketed) == (case != "one_bucket")
+    assert case == "one_bucket" or b == 4
     rng = np.random.default_rng(seed)
     q = len(queries)
+    real = valid & (keys[:, 0] < 1e8)
+    lo_b, h_b, n_b = float(prep.lo_b), float(prep.h_b), int(prep.n_b)
     if case == "outside_span":
-        span = float(np.abs(keys[valid & (keys[:, 0] < 1e8), s]).max())
+        span = float(np.abs(keys[real, s]).max())
         queries[: q // 2, s] = span + 300.0 * rng.random(q // 2)
         queries[q // 2:, s] = -span - 3.0 * w[s] * rng.random(q - q // 2)
     elif case == "off_lattice":
@@ -577,11 +672,61 @@ def test_composite_prune_keeps_every_contained_pair(seed, case):
         queries[1::3, -1] += 0.5
     elif case == "sentinel_queries":
         queries[::50] = S.SENTINEL_KEY
-    ops, _ = K.prepared_query_operands(prep, _t(queries))
-    keep = _assert_prune_keeps(ops, 0 if case == "outside_span" else 50)
+    elif case == "bucket_edge":
+        # rows exactly on inner edges, queries exactly w_b either side
+        on = np.flatnonzero(real)[:200]
+        keys[on, b] = lo_b + h_b * rng.integers(1, n_b, 200)
+        t = [_t(a) for a in (keys, values, valid)]
+        prep = K.prepare_sorted_store(*t, _t(w))
+        assert float(prep.lo_b) == lo_b and float(prep.h_b) == h_b
+        queries = keys[on[rng.integers(0, 200, q)]].copy()
+        queries[:, b] += np.where(rng.random(q) < 0.5, -1.0, 1.0) * w[b]
+    elif case == "straddle":
+        # rows within w_b / 10 of an inner edge, boxes across that edge
+        edge = lo_b + h_b * np.clip(np.round((keys[:, b] - lo_b) / h_b), 1,
+                                    n_b - 1)
+        by = np.flatnonzero(real & (np.abs(keys[:, b] - edge) < 0.1 * w[b]))
+        pick = by[rng.integers(0, len(by), q)]
+        queries = keys[pick].copy()
+        queries[:, b] = edge[pick] + rng.uniform(-0.9, 0.9, q) * w[b]
+    elif case in ("below_b", "above_b"):
+        # the rows at the ends of the span, boxes reaching past them
+        k_b = np.where(real, keys[:, b], np.nan)
+        ends = np.argsort(k_b)[:100] if case == "below_b" \
+            else np.argsort(-np.nan_to_num(k_b, nan=-np.inf))[:100]
+        queries = keys[ends[rng.integers(0, 100, q)]].copy()
+        sign = -1.0 if case == "below_b" else 1.0
+        queries[:, b] += sign * w[b] * rng.uniform(0, 1.5, q)
+    elif case == "nan_queries":
+        queries[::7] = np.nan
+        queries[1::7, b] = np.nan
+    queries = queries.astype(np.float32)
+    ops, qorder = K.prepared_query_operands(prep, _t(queries))
+    mask = _contained(ops)
+    keep = _assert_prune_keeps(ops, {"outside_span": 0, "nan_queries": 20}
+                               .get(case, 50), mask)
+    # each contained pair counted by one copy of its query
+    counts = torch.zeros(q).index_add_(0, qorder % q,
+                                       mask.sum(1, dtype=torch.float32))
+    raw = S._raw_moments(*t, _t(queries), _t(w))
+    assert torch.equal(counts, raw[:, 0])
     if case == "sentinel_queries":
         # the sentinel rows are valid and matched, from a 1e9-scale key
-        assert float(K.sorted_moments_plain(ops)[:, 0].max()) > 50
+        assert float(counts.max()) > 50
+        return
+    if case == "nan_queries":
+        assert not counts[::7].any() and not counts[1::7].any()
+    if case == "one_bucket":
+        comp, comp_order = K.prepared_query_operands(
+            K._prepare_band(t[0], t[1], t[2], _t(w), prep.sdim, prep.sdim2),
+            _t(queries))
+        _assert_holds_one_copy_operands(ops, qorder, comp, comp_order,
+                                        len(keys))
+        assert torch.equal(K.query_sorted_prepared(prep, _t(queries)),
+                           torch.empty((q, 3)).index_copy_(
+                               0, comp_order, K.sorted_moments_plain(comp)))
+        return
+    if not old_case:
         return
     flat, _ = _flat_key_operands(*t, _t(queries), _t(w))
     flat_keep = _assert_prune_keeps(flat, 0 if case == "outside_span"
@@ -592,10 +737,12 @@ def test_composite_prune_keeps_every_contained_pair(seed, case):
 @pytest.mark.parametrize("change", ["wide_action", "non_integer_action"])
 def test_flat_key_where_the_band_dim_is_not_discrete(change):
     """With ``w_a >= 0.5`` or a non-integer valid key in the band dim,
-    ``prepare_sorted_store`` keeps the flat key: the operands are bit for
-    bit those of the flat key made directly."""
+    ``prepare_sorted_store`` keeps the flat key and takes no middle
+    level: the operands hold those of the flat key made directly bit for
+    bit (:func:`_assert_holds_one_copy_operands`), and so do the
+    moments."""
     keys, values, valid, queries, w = _lane_like_inputs(
-        2, 6000, 300, sentinel=change != "wide_action")
+        2, 6000, 300, sentinel=change != "wide_action", middle=True)
     if change == "wide_action":
         w[-1] = 0.5
         keys[:, -1] *= 40.0  # keep it the band dim
@@ -604,11 +751,14 @@ def test_flat_key_where_the_band_dim_is_not_discrete(change):
     t = [_t(a) for a in (keys, values, valid, queries, w)]
     prep = K.prepare_sorted_store(*t[:3], t[4])
     assert not bool(prep.composite) and int(prep.sdim) == 20
+    assert not bool(prep.bucketed) and prep.copies == 2
     got, got_order = K.prepared_query_operands(prep, t[3])
     want, want_order = _flat_key_operands(*t)
-    _assert_operands_equal(got, want)
-    assert torch.equal(got_order, want_order)
+    _assert_holds_one_copy_operands(got, got_order, want, want_order,
+                                    len(keys))
     assert torch.equal(prep.w0, t[4][20:])
+    assert torch.equal(K.query_sorted_prepared(prep, t[3]), torch.empty(
+        (300, 3)).index_copy_(0, want_order, K.sorted_moments_plain(want)))
 
 
 def test_grouped_prune_keeps_pairs_on_dense_sentinel_store():
@@ -656,36 +806,41 @@ def test_grouped_prune_keeps_off_lattice_action_rows():
 # grouped route's record order.  Taken on one torch thread: on the
 # sentinel store the 1e9 rows swamp every dim's spread, so the order of
 # dims with equal half-widths is that of the sums' rounding, which
-# follows the thread count.
+# follows the thread count.  With the middle level, prepare_sorted_store
+# also picks sdim3 and whether it takes the level (bucketed), and its
+# records end in the bucket column; where it takes the level the rows'
+# band order changes, and with it on the sentinel store the order of two
+# dims of equal half-width (lane_sentinel's 11 and 3).
 BAND_DIMS = {
     "flat_random": dict(
-        sdim=11, sdim2=3, composite=False,
+        sdim=11, sdim2=3, composite=False, sdim3=0, bucketed=False,
         perm=[3, 0, 8, 19, 13, 9, 14, 17, 4, 1, 20, 12, 6, 16, 7, 10, 2, 18,
-              5, 15, 11],
+              5, 15, 11, 21],
         pa_sdim2=11,
         pa_perm=[3, 0, 8, 19, 13, 9, 14, 17, 4, 12, 6, 16, 7, 10, 2, 18, 5,
                  15, 11, 1]),
     "lane_sentinel": dict(
-        sdim=20, sdim2=8, composite=True,
-        perm=[1, 5, 9, 13, 17, 0, 2, 6, 10, 14, 18, 4, 12, 16, 3, 7, 11, 15,
-              19, 8, 20],
+        sdim=20, sdim2=8, composite=True, sdim3=17, bucketed=True,
+        perm=[1, 5, 9, 13, 17, 0, 2, 6, 10, 14, 18, 4, 12, 16, 11, 3, 7, 15,
+              19, 8, 20, 21],
         pa_sdim2=8,
         pa_perm=[17, 5, 9, 13, 0, 18, 14, 2, 6, 10, 16, 12, 4, 19, 15, 3, 7,
                  11, 8, 1]),
     "lane_plain": dict(
-        sdim=20, sdim2=8, composite=True,
+        sdim=20, sdim2=8, composite=True, sdim3=11, bucketed=True,
         perm=[11, 12, 16, 9, 4, 6, 3, 0, 18, 19, 7, 13, 14, 5, 15, 2, 17, 10,
-              1, 8, 20],
+              1, 8, 20, 21],
         pa_sdim2=8,
         pa_perm=[11, 12, 16, 9, 4, 6, 3, 0, 18, 19, 7, 13, 14, 5, 15, 2, 17,
                  10, 8, 1]),
     "dense_sentinel": dict(
-        sdim=4, sdim2=0, composite=True, perm=[1, 2, 3, 0, 4], pa_sdim2=0,
+        sdim=4, sdim2=0, composite=True, sdim3=1, bucketed=True,
+        perm=[1, 2, 3, 0, 4, 5], pa_sdim2=0,
         pa_perm=[2, 3, 0, 1], grouped_perm=[0, 2, 3, 1, 4]),
     "grouped": dict(
-        sdim=20, sdim2=5, composite=True,
+        sdim=20, sdim2=5, composite=True, sdim3=6, bucketed=True,
         perm=[6, 11, 9, 16, 13, 4, 18, 12, 15, 3, 17, 19, 14, 7, 8, 10, 2, 1,
-              0, 5, 20],
+              0, 5, 20, 21],
         pa_sdim2=5,
         pa_perm=[6, 11, 9, 16, 13, 4, 18, 12, 15, 3, 17, 19, 14, 7, 8, 10, 2,
                  0, 5, 1],
@@ -712,7 +867,8 @@ def test_band_dims_as_before(store):
         pa = K.prepare_peraction_store(*t, _t(w), num_actions=num_actions,
                                        n_tile=256)
         got = dict(sdim=int(prep.sdim), sdim2=int(prep.sdim2),
-                   composite=bool(prep.composite), perm=prep.perm.tolist(),
+                   composite=bool(prep.composite), sdim3=int(prep.sdim3),
+                   bucketed=bool(prep.bucketed), perm=prep.perm.tolist(),
                    pa_sdim2=int(pa.sdim2), pa_perm=pa.perm.tolist())
         if queries.ndim == 3:
             ops, _ = K.grouped_query_operands(*t, _t(queries), _t(w))
